@@ -8,18 +8,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds every kernel of the port from ``manga_image_translator_tpu_torch/
    csrc`` with nvcc (sm_90a) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, within the stated tolerance;
+   shapes of the main path, within the stated tolerance (K1 bilateral, K2 decoder step, K3 char head, K4 FourierUnit, K5
+   streaming conv), and the whole 18-block LaMa generator on a 512² crop in
+   f32 against its plain routes;
 4. drives the port's main path — the ``local`` CLI mode (detect → 48px OCR →
-   textline merge → translate ``none`` → mask refinement → inpaint ``none``
-   → render ``none``) on two synthetic pages — with the launch counters set
-   to 0 just before and read just after; random-weight detectors may find
-   no text, so the OCR and mask-refinement stage runners also run on the
-   pages' known text boxes; every kernel must have launched; then runs the
-   literal ``python -m manga_image_translator_tpu_torch local`` command in
-   a process of its own;
+   textline merge → translate ``original`` → mask refinement → inpaint
+   ``lama_large`` → render ``default``) on two synthetic pages — with the
+   launch counters set to 0 just before and read just after; random-weight
+   detectors may find no text, so the OCR, mask-refinement, inpainting and
+   rendering stage runners also run on the pages' known text boxes; every
+   kernel must have launched, K4 36 times and K5 twice per generator
+   forward; the inpainted page may change only inside the mask, the
+   rendered one only inside the text boxes; then runs the literal
+   ``python -m manga_image_translator_tpu_torch local`` command in a
+   process of its own;
 5. times each kernel (CUDA events, median of 25 after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
-   computes the least time the card could take (``bound_ms``);
+   computes the least time the card could take (``bound_ms``); traces one
+   LaMa forward to split its device time between K4, K5 and cuDNN;
 6. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 It exits non-zero on any failure, and when CUDA is unavailable.
@@ -28,7 +34,11 @@ Weights are random, made from fixed seeds (MIT_TPU_ALLOW_RANDOM_WEIGHTS=1).
 from __future__ import annotations
 
 import asyncio
+import collections
+import copy
+import functools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -46,9 +56,16 @@ OUT = os.path.join(WORK, 'out')
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # CUDA cores, f32
 BF16_OPS_PER_S = 989e12        # tensor cores, bf16 inputs
+F32X3_OPS_PER_S = 495e12 / 3   # f32-accurate products as three TF32 passes
 
 PAGE_W, PAGE_H = 1448, 2048    # one detection canvas tall
 LINES_PER_PAGE = 18            # > 16 lines: the 24-crop OCR chunk (N = 120)
+LAMA_BLOCKS = 18               # lama_large
+FU_C = 192                     # FourierUnit channels (384 global // 2)
+CROP = 1024                    # the largest crop bucket
+# K5's two convs on the LaMa path: (cin, cout, relu, output dtype)
+K5_CONVS = {'stem': (4, 64, True, torch.bfloat16),
+            'final': (64, 3, False, torch.float32)}
 
 
 def require(cond, msg: str) -> None:
@@ -76,6 +93,19 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time to enqueue one call of ``fn`` (µs), at a shape small
+    enough that the device keeps up: what the wrapper costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
@@ -159,6 +189,59 @@ def k2_inputs(model, n=120, s_len=256, m_len=96, seed=0):
                                                  torch.bfloat16)
     rot = ocr48.rot_table(s_len, 'cuda')
     return mem_k, mem_v, mem_len, rot
+
+
+def k4_inputs(shape, seed=0):
+    """A FourierUnit input (post-ReLU, so non-negative) and folded weights
+    at the generator's init scale."""
+    c = shape[-1]
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.rand(shape, generator=g, device='cuda')
+    w_spec = (torch.randn((2 * c, 2 * c), generator=g, device='cuda')
+              * math.sqrt(2.0 / (2 * c)))
+    b_spec = torch.randn((2 * c,), generator=g, device='cuda') * 0.1
+    return x, w_spec, b_spec
+
+
+def k5_inputs(name, n, h, w, seed=0):
+    """Padded input (n, h + 6, w + 6, cin) for an h x w output, HWIO 7x7
+    weights and bias of K5's conv ``name``."""
+    cin, cout, _, _ = K5_CONVS[name]
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.rand((n, h + 6, w + 6, cin), generator=g, device='cuda')
+    wt = (torch.randn((7, 7, cin, cout), generator=g, device='cuda')
+          * math.sqrt(2.0 / (49 * cin)))
+    b = torch.randn((cout,), generator=g, device='cuda') * 0.1
+    return x, wt, b
+
+
+def k4_work(shape, in_bytes):
+    """(bytes, operations) FourierUnit needs at ``shape``: x read and the
+    output written once, the weights read once; the spectral conv plus the
+    FFT-minimal cost (2.5 N log2 N per real 2-D transform and channel)."""
+    n, h, w, c = shape
+    k = w // 2 + 1
+    nbytes = 2 * n * h * w * c * in_bytes + (2 * c) ** 2 * 4 + 2 * c * 4
+    ops = n * (2 * (2 * c) ** 2 * h * k
+               + 2 * 2.5 * h * w * math.log2(h * w) * c)
+    return nbytes, ops
+
+
+def k5_work(name, n, h, w, in_bytes):
+    """(bytes, operations) of K5's conv ``name`` for an n x h x w output."""
+    cin, cout, _, out_dt = K5_CONVS[name]
+    out_bytes = 2 if out_dt == torch.bfloat16 else 4
+    nbytes = (n * (h + 6) * (w + 6) * cin * in_bytes
+              + n * h * w * cout * out_bytes + 49 * cin * cout * 4 + cout * 4)
+    return nbytes, 2 * n * h * w * 49 * cin * cout
+
+
+@functools.lru_cache(maxsize=1)
+def lama_model():
+    """The 18-block generator, seeded random weights, BN folded, f32."""
+    from manga_image_translator_tpu_torch.models import lama
+    return lama.fold_bn(lama.build_lama(
+        LAMA_BLOCKS, lama.init_state_dict(LAMA_BLOCKS), 'cuda'))
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +332,100 @@ def phase_check(results):
         torch.testing.assert_close(gv, rv_, rtol=2e-2, atol=2e-2)
         k3_err = max(k3_err, verr)
     results['charhead']['max_abs_err'] = k3_err
+    check_lama(results)
+
+
+def check_lama(results):
+    """K4, K5 and the whole generator against their plain versions. The
+    plain versions run in true f32: matmuls without TF32 (the port's
+    setting, device.py), cuDNN without TF32 (conv2d_stream_ref switches it
+    off for its call; here for the generator's other convs too)."""
+    from manga_image_translator_tpu_torch.models import lama
+    from manga_image_translator_tpu_torch.ops import conv_stream as k5
+    from manga_image_translator_tpu_torch.ops import fourier_unit as k4
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            'TF32 matmuls are on: the plain FourierUnit is no f32 reference')
+
+    # K4 at a 1024² crop's trunk and at the full-page path's odd width
+    # (a 2048 x 1448 page: 256 x 181), f32: 1e-4 of the output's max
+    k4_err = 0.0
+    for shape in ((1, CROP // 8, CROP // 8, FU_C), (1, 256, 181, FU_C)):
+        x, w_spec, b_spec = k4_inputs(shape)
+        got = k4.fourier_unit(x, w_spec, b_spec)
+        ref = k4.fourier_unit_ref(x, w_spec, b_spec)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        emit({'phase': 'check', 'kernel': 'fourier_unit', 'shape': shape,
+              'dtype': 'float32', 'max_abs_err': err, 'max_rel_err': rel,
+              'tol_rel': 1e-4})
+        require(rel <= 1e-4, f'fourier_unit {shape}: rel err {rel}')
+        k4_err = max(k4_err, err)
+    results['fourier_unit']['max_abs_err'] = k4_err
+
+    # K5: stem and final conv of a 1024² crop, f32 (1e-5) and in the main
+    # path's types against the f32 conv of the same bf16 inputs (1e-2)
+    k5_err = 0.0
+    for name, (_, _, relu, out_dt) in K5_CONVS.items():
+        x, w, b = k5_inputs(name, 1, CROP, CROP)
+        for in_dt, o_dt, tol in ((torch.float32, torch.float32, 1e-5),
+                                 (torch.bfloat16, out_dt, 1e-2)):
+            xi = x.to(in_dt)
+            got = k5.conv2d_stream(xi, w, b, relu=relu, out_dtype=o_dt)
+            ref = k5.conv2d_stream_ref(xi, w, b, relu=relu,
+                                       out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            emit({'phase': 'check', 'kernel': 'conv_stream', 'conv': name,
+                  'shape': list(xi.shape), 'in': str(in_dt), 'out': str(o_dt),
+                  'max_abs_err': err, 'max_rel_err': rel, 'tol_rel': tol})
+            require(rel <= tol, f'conv_stream {name} {in_dt}: rel err {rel}')
+            k5_err = max(k5_err, err)
+    results['conv_stream']['max_abs_err'] = k5_err
+
+    # the whole generator on a 512² crop in f32: kernels against the
+    # plain routes with the same weights, 1e-3 absolute on the output.
+    # Random weights grow the trunk through 18 residual blocks until the
+    # sigmoid saturates (logits ~1e8, every output 0 or 1), which would
+    # hide any difference: here each block's second FFC is scaled by 0.1
+    # (its ReLU'd branch with it), which keeps the output in (0, 1).
+    model = copy.deepcopy(lama_model())
+    with torch.no_grad():
+        for i in range(LAMA_BLOCKS):
+            ffc = model.model[5 + i].conv2.ffc
+            for conv in (ffc.convl2l, ffc.convg2l, ffc.convl2g,
+                         ffc.convg2g.conv2):
+                conv.weight.mul_(0.1)
+                if conv.bias is not None:
+                    conv.bias.mul_(0.1)
+    g = torch.Generator(device='cuda').manual_seed(5)
+    img = torch.rand((1, 512, 512, 3), generator=g, device='cuda')
+    mask = (torch.rand((1, 512, 512, 1), generator=g, device='cuda')
+            < 0.3).float()
+    img = img * (1 - mask)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    routes = (lama.fourier_unit, lama.conv2d_stream)
+    try:
+        with torch.inference_mode():
+            got = model(img, mask)
+            lama.fourier_unit = k4.fourier_unit_ref
+            lama.conv2d_stream = k5.conv2d_stream_ref
+            ref = model(img, mask)
+        torch.cuda.synchronize()
+    finally:
+        lama.fourier_unit, lama.conv2d_stream = routes
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((got - ref).abs().max())
+    unsaturated = float(((ref > 0.01) & (ref < 0.99)).float().mean())
+    emit({'phase': 'check', 'kernel': 'lama_generator', 'blocks': LAMA_BLOCKS,
+          'shape': list(img.shape), 'dtype': 'float32', 'max_abs_err': err,
+          'output_range': [float(ref.min()), float(ref.max())],
+          'unsaturated_share': unsaturated, 'tol': 1e-3})
+    require(unsaturated > 0.5, f'LaMa generator output saturated '
+            f'({unsaturated} of values in (0.01, 0.99))')
+    require(err <= 1e-3, f'LaMa generator: kernels vs plain {err}')
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +464,15 @@ def make_pages(page_dir):
 
 
 async def _known_quads_pass(translator, config, page_path, quads):
-    """OCR + merge + translate + mask refinement through the orchestrator's
-    stage runners on the page's known text boxes (the random-weight
-    detector may find none); returns per-stage ms (device synchronised)."""
+    """OCR + merge + translate + mask refinement + inpainting + rendering
+    through the orchestrator's stage runners on the page's known text boxes
+    (the random-weight detector may find none); returns per-stage ms
+    (device synchronised) and what each stage changed. Writes the inpainted
+    and the rendered page under OUT."""
     import cv2
     import numpy as np
     from PIL import Image
+    from manga_image_translator_tpu_torch import inpainting, rendering
     from manga_image_translator_tpu_torch.utils.generic import (Context,
                                                                 load_image)
     from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
@@ -319,11 +499,45 @@ async def _known_quads_pass(translator, config, page_path, quads):
         'textline_merge', lambda: translator._run_textline_merge(config, ctx))
     ctx.text_regions = await timed(
         'translate', lambda: translator._run_text_translation(config, ctx))
-    mask = await timed('mask_refine',
-                       lambda: translator._run_mask_refinement(config, ctx))
+    ctx.mask = await timed('mask_refine',
+                           lambda: translator._run_mask_refinement(config,
+                                                                   ctx))
+    inp = inpainting.get_inpainter(config.inpainter.inpainter)
+    first = len(inp.forwards)
+    ctx.img_inpainted = await timed(
+        'inpaint', lambda: translator._run_inpainting(config, ctx))
+    forwards = inp.forwards[first:]
+
+    # the inpainter may change the mask's pixels only; the renderer only
+    # the rects it composites into: the bounding rects of the regions'
+    # font-size adjusted boxes (computed as rendering.dispatch does, on
+    # copies: the resize sets each region's font size)
+    inside = ctx.mask >= 127
+    inpainted = (ctx.img_inpainted != ctx.img_rgb).any(-1)
+    drawn = [r for r in ctx.text_regions if r.translation]
+    boxes = np.zeros(inside.shape, bool)
+    for dst in rendering.resize_regions_to_font_size(
+            ctx.img_inpainted, copy.deepcopy(drawn), config.render.font_size,
+            config.render.font_size_offset, config.render.font_size_minimum):
+        x, y, w, h = cv2.boundingRect(dst.astype(np.int32))
+        x, y = max(x, 0), max(y, 0)
+        boxes[y:y + h, x:x + w] = True
+    ctx.img_rendered = await timed(
+        'render', lambda: translator._run_text_rendering(config, ctx))
+    rendered = (ctx.img_rendered != ctx.img_inpainted).any(-1)
+    stem = os.path.splitext(os.path.basename(page_path))[0]
+    for tag, img in (('inpainted', ctx.img_inpainted),
+                     ('rendered', ctx.img_rendered)):
+        cv2.imwrite(os.path.join(OUT, f'{stem}_{tag}.png'),
+                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
     return {'ocr_lines': len(ctx.textlines),
-            'regions': len(ctx.text_regions),
-            'mask_pixels': int((mask > 0).sum()), 'stage_ms': ms}
+            'regions': len(ctx.text_regions), 'drawn_regions': len(drawn),
+            'mask_pixels': int(inside.sum()),
+            'inpainted_pixels_inside': int((inpainted & inside).sum()),
+            'inpainted_pixels_outside': int((inpainted & ~inside).sum()),
+            'rendered_pixels_in_boxes': int((rendered & boxes).sum()),
+            'rendered_pixels_outside': int((rendered & ~boxes).sum()),
+            'forwards': [list(f) for f in forwards], 'stage_ms': ms}
 
 
 def phase_pipeline():
@@ -332,6 +546,8 @@ def phase_pipeline():
     from manga_image_translator_tpu_torch.args import parser
     from manga_image_translator_tpu_torch.mode.local import (
         MangaTranslatorLocal, load_config_file)
+    from manga_image_translator_tpu_torch import inpainting
+    from manga_image_translator_tpu_torch.config import Inpainter
     from manga_image_translator_tpu_torch.ops import cuda_build
 
     page_dir = os.path.join(WORK, 'pages')
@@ -340,15 +556,18 @@ def phase_pipeline():
     cfg_path = os.path.join(WORK, 'config.json')
     with open(cfg_path, 'w') as f:
         # random OCR weights give probabilities ~1e-40: threshold 0 keeps
-        # their lines so the later stages (mask refinement) have work
+        # their lines so the later stages (mask refinement, inpainting,
+        # rendering) have work; the inpainter's precision is the default
+        # (bf16)
         json.dump({'detector': {'detector': 'default',
                                 'detection_size': 2048},
                    'ocr': {'ocr': '48px', 'prob': 0.0},
-                   'translator': {'translator': 'none', 'target_lang': 'ENG',
+                   'translator': {'translator': 'original',
+                                  'target_lang': 'ENG',
                                   'no_text_lang_skip': True,
                                   'enable_post_translation_check': False},
-                   'inpainter': {'inpainter': 'none'},
-                   'render': {'renderer': 'none'}}, f)
+                   'inpainter': {'inpainter': 'lama_large'},
+                   'render': {'renderer': 'default'}}, f)
     args = parser.parse_args(['local', '-i', page_dir, '--dest', dest,
                               '--config-file', cfg_path, '--overwrite'])
     args_dict = vars(args)
@@ -358,6 +577,8 @@ def phase_pipeline():
         if state.startswith('stage-time:'):
             _, name, ms = state.split(':')
             stage_ms.append((name, float(ms)))
+
+    inp = inpainting.get_inpainter(Inpainter.lama_large)
 
     async def drive():
         translator = MangaTranslatorLocal(args_dict)
@@ -373,6 +594,7 @@ def phase_pipeline():
         return extra
 
     torch.cuda.synchronize()
+    inp.forwards = []
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     extra = asyncio.run(drive())
@@ -389,16 +611,38 @@ def phase_pipeline():
         require(arr.shape == (PAGE_H, PAGE_W, 3) and np.isfinite(arr).all(),
                 f'{name}: result shape {arr.shape}')
         pages[name] = {'shape': list(arr.shape), 'mean': float(arr.mean())}
+    forwards = list(inp.forwards)
+    buckets = collections.Counter(tuple(f) for f in forwards)
     emit({'phase': 'pipeline', 'wall_s': wall, 'stage_ms': stage_ms,
           'known_box_pass': extra, 'pages_written': written,
-          'pages': pages, 'launches': counts})
+          'pages': pages, 'launches': counts,
+          'lama_forwards': {f'{n}x{h}x{w}': k
+                            for (n, h, w), k in sorted(buckets.items())},
+          'inpaint_ms_per_page': [r['stage_ms']['inpaint']
+                                  for r in extra.values()],
+          'render_ms_per_page': [r['stage_ms']['render']
+                                 for r in extra.values()]})
     for name, n in counts.items():
         require(n > 0, f'kernel {name} was not launched by the main path')
+    # K4 once per FourierUnit (2 per resnet block), K5 for stem and final
+    require(counts['fourier_unit'] == 2 * LAMA_BLOCKS * len(forwards)
+            and counts['conv_stream'] == 2 * len(forwards),
+            f'{len(forwards)} generator forwards, launches {counts}')
     for name, r in extra.items():
         require(r['ocr_lines'] == LINES_PER_PAGE and r['mask_pixels'] > 0,
                 f'{name}: {r["ocr_lines"]} OCR lines, '
                 f'{r["mask_pixels"]} mask pixels')
-    return counts, page_dir, cfg_path
+        require(r['forwards'] and r['inpainted_pixels_inside'] > 0
+                and r['inpainted_pixels_outside'] == 0,
+                f'{name}: inpainting changed {r["inpainted_pixels_inside"]} '
+                f'pixels inside the mask, {r["inpainted_pixels_outside"]} '
+                f'outside')
+        require(r['drawn_regions'] > 0 and r['rendered_pixels_in_boxes'] > 0
+                and r['rendered_pixels_outside'] == 0,
+                f'{name}: rendering changed {r["rendered_pixels_in_boxes"]} '
+                f'pixels in the text boxes, {r["rendered_pixels_outside"]} '
+                f'outside')
+    return counts, forwards, page_dir, cfg_path
 
 
 def phase_cli(page_dir, cfg_path):
@@ -516,7 +760,7 @@ def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len):
     return x
 
 
-def phase_times(results):
+def phase_times(results, forwards):
     from manga_image_translator_tpu_torch.ops import bilateral, charhead
     from manga_image_translator_tpu_torch.ops import decode_step as dops
 
@@ -593,9 +837,138 @@ def phase_times(results):
         nbytes, 2 * n * 320 * 320 + 2 * n * v * 320, BF16_OPS_PER_S)
     r['shape'] = {'n': n, 'vocab': v, 'k': 5}
 
+    times_lama(results, forwards)
     emit({'phase': 'times', 'kernels': {k: {kk: vv for kk, vv in r.items()
                                             if kk.endswith('ms')}
                                         for k, r in results.items()}})
+
+
+def lama_shapes(forwards):
+    """(N, H, W) of the generator forward the pipeline ran most (ties to
+    the most pixels), and of one 1024² crop."""
+    seen = collections.Counter(tuple(f) for f in forwards)
+    most = max(seen, key=lambda f: (seen[f], f[0] * f[1] * f[2]))
+    return {'pipeline_most': most, 'crop_1024': (1, CROP, CROP)}
+
+
+def times_lama(results, forwards):
+    """K4 and K5 at the main path's types (bf16 in; K4 out bf16, K5's stem
+    bf16 and final f32) for one generator forward at each of
+    ``lama_shapes``: K4 per call, K5 its stem and final convs summed. The
+    K4 yardstick is its plain version itself (cuFFT + einsum: one PyTorch
+    route to the same function), K5's one cuDNN conv with bias (+ ReLU)
+    on the same bf16 input in channels_last."""
+    import torch.nn.functional as F
+    from manga_image_translator_tpu_torch.ops import conv_stream as k5
+    from manga_image_translator_tpu_torch.ops import fourier_unit as k4
+    bf16 = torch.bfloat16
+    x, w_spec, b_spec = k4_inputs((1, 16, 16, FU_C))
+    x = x.to(bf16)
+    k4_host = host_us(lambda: k4.fourier_unit(x, w_spec, b_spec))
+    xs, wt, b = k5_inputs('stem', 1, 16, 16)
+    xs = xs.to(bf16)
+    k5_host = host_us(lambda: k5.conv2d_stream(xs, wt, b, relu=True))
+    emit({'phase': 'host_us_per_call', 'fourier_unit': k4_host,
+          'conv_stream': k5_host})
+    for at, (n, h, w) in lama_shapes(forwards).items():
+        shape = (n, h // 8, w // 8, FU_C)
+        x, w_spec, b_spec = k4_inputs(shape)
+        x = x.to(bf16)
+        r4 = {'shape': list(shape), 'dtype': 'bfloat16'}
+        r4['ms'] = cuda_ms(lambda: k4.fourier_unit(x, w_spec, b_spec))
+        r4['plain_ms'] = cuda_ms(lambda: k4.fourier_unit_ref(x, w_spec,
+                                                             b_spec))
+        r4['library_ms'] = r4['plain_ms']
+        r4['bound_ms'], r4['bound_by'] = bound_ms(*k4_work(shape, 2),
+                                                  F32X3_OPS_PER_S)
+        r5 = {'shape': [n, h, w], 'dtype': 'bfloat16', 'ms': 0.0,
+              'plain_ms': 0.0, 'library_ms': 0.0}
+        nbytes = ops = 0
+        for name, (_, _, relu, out_dt) in K5_CONVS.items():
+            xc, wt, b = k5_inputs(name, n, h, w)
+            xc = xc.to(bf16)
+            w_lib = wt.permute(3, 2, 0, 1).to(bf16).contiguous(
+                memory_format=torch.channels_last)
+            x_lib = xc.permute(0, 3, 1, 2)          # channels_last view
+            b_lib = b.to(bf16)
+
+            def library():
+                y = F.conv2d(x_lib, w_lib, b_lib)
+                return (F.relu(y) if relu else y).to(out_dt)
+            c = {'ms': cuda_ms(lambda: k5.conv2d_stream(
+                     xc, wt, b, relu=relu, out_dtype=out_dt)),
+                 'plain_ms': cuda_ms(lambda: k5.conv2d_stream_ref(
+                     xc, wt, b, relu=relu, out_dtype=out_dt), iters=10),
+                 'library_ms': cuda_ms(library)}
+            nb, op = k5_work(name, n, h, w, 2)
+            c['bound_ms'], c['bound_by'] = bound_ms(nb, op, BF16_OPS_PER_S)
+            nbytes, ops = nbytes + nb, ops + op
+            for key in ('ms', 'plain_ms', 'library_ms'):
+                r5[key] += c[key]
+            r5[name] = c
+        r5['bound_ms'], r5['bound_by'] = bound_ms(nbytes, ops,
+                                                  BF16_OPS_PER_S)
+        emit({'phase': 'times_lama', 'at': at, 'forward': [n, h, w],
+              'fourier_unit': r4, 'conv_stream': r5})
+        for name, r in (('fourier_unit', r4), ('conv_stream', r5)):
+            if at == 'pipeline_most':
+                results[name].update(r)
+            else:
+                results[name][f'at_{at}'] = r
+
+
+def phase_lama_trace(forwards):
+    """One bf16 generator forward at the pipeline's most-run crop shape
+    under torch.profiler: device µs by kernel (K4's GEMM stages, K5, the
+    rest: cuDNN convs, transposed convs, elementwise), busy and span."""
+    from torch.profiler import ProfilerActivity, profile
+    from manga_image_translator_tpu_torch.models import lama
+    n, h, w = lama_shapes(forwards)['pipeline_most']
+    model = lama.cast_for_compute(lama_model(), torch.bfloat16)
+    g = torch.Generator(device='cuda').manual_seed(7)
+    img = torch.rand((n, h, w, 3), generator=g, device='cuda')
+    mask = (torch.rand((n, h, w, 1), generator=g, device='cuda') < 0.3
+            ).to(torch.bfloat16)
+    img = (img * (1 - mask)).to(torch.bfloat16)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(img, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(img, mask)
+            torch.cuda.synchronize()
+    path = os.path.join(OUT, 'lama_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ks = [e for e in json.load(f)['traceEvents']
+              if e.get('cat') == 'kernel']
+    require(ks, 'the LaMa trace holds no kernels')
+
+    def role(name):
+        if 'conv_stream' in name:
+            return 'K5 conv_stream'
+        if '::gemm<' in name:
+            return 'K4 fourier_unit'
+        return 'other'
+    by_role = collections.defaultdict(float)
+    by_name = collections.defaultdict(float)
+    for e in ks:
+        by_role[role(e['name'])] += e['dur']
+        by_name[e['name'][:90]] += e['dur']
+    span = max(e['ts'] + e['dur'] for e in ks) - min(e['ts'] for e in ks)
+    ops = []
+    for a in prof.key_averages():
+        dev = getattr(a, 'self_device_time_total',
+                      getattr(a, 'self_cuda_time_total', 0))
+        if dev > 0:
+            ops.append((dev, a.key, a.count))
+    emit({'phase': 'lama_trace', 'forward': [n, h, w], 'dtype': 'bfloat16',
+          'kernels': len(ks), 'busy_us': sum(e['dur'] for e in ks),
+          'span_us': span, 'us_by_role': dict(by_role),
+          'top_us': dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
+          'top_ops_us_calls': [[k, d, c] for d, k, c in
+                               sorted(ops, reverse=True)[:12]]})
 
 
 STEP_ROLES = ['qkv_ln', 'self_attention', 'out_proj', 'cross_q_ln',
@@ -682,14 +1055,21 @@ def main() -> int:
                         'manga_image_translator_tpu/ops/pallas_decode.py:413'),
         'charhead': ('cuda', 'manga_image_translator_tpu_torch/csrc/charhead.cu',
                      'manga_image_translator_tpu/ops/pallas_charhead.py:98'),
+        'fourier_unit': ('cuda',
+                         'manga_image_translator_tpu_torch/csrc/fourier_unit.cu',
+                         'manga_image_translator_tpu/ops/pallas_spectral.py:294'),
+        'conv_stream': ('cuda',
+                        'manga_image_translator_tpu_torch/csrc/conv_stream.cu',
+                        'manga_image_translator_tpu/ops/pallas_conv.py:145'),
     }
     results = {name: {} for name in meta}
     phase_check(results)
-    counts, page_dir, cfg_path = phase_pipeline()
+    counts, forwards, page_dir, cfg_path = phase_pipeline()
     phase_cli(page_dir, cfg_path)
     phase_breakdown()
-    phase_times(results)
+    phase_times(results, forwards)
     phase_trace()
+    phase_lama_trace(forwards)
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = results[name]
@@ -699,7 +1079,8 @@ def main() -> int:
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
-            'shape': r['shape']})
+            'shape': r['shape'],
+            **{k: v for k, v in r.items() if k.startswith('at_')}})
     emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
           'build_seconds': build_seconds})
     emit({'kernels': kernels})

@@ -1,6 +1,7 @@
 """Inpainting stage: registry + dispatch (contract: reference
-inpainting/__init__.py:13-45). The port serves ``none`` and ``original``;
-the model-backed inpainters wait for ROADMAP A.6 (LaMa-large) and A.9."""
+inpainting/__init__.py:13-45). The port serves ``lama_large`` (the
+default), ``none`` and ``original``; ``default`` (AOT) and ``lama_mpe``
+wait for ROADMAP A.9, ``sd`` for A.13."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,7 @@ import numpy as np
 
 from ..config import Inpainter, InpainterConfig
 from .common import CommonInpainter, OfflineInpainter
+from .inpainting_lama import LamaLargeInpainter, LamaMPEInpainter
 from .none_inpainter import NoneInpainter, OriginalInpainter
 
 
@@ -21,8 +23,8 @@ def _not_ported(name: str, item: str):
 
 INPAINTERS = {
     Inpainter.default: _not_ported('default', 'A.9: other inpainters'),
-    Inpainter.lama_large: _not_ported('lama_large', 'A.6: LaMa-large'),
-    Inpainter.lama_mpe: _not_ported('lama_mpe', 'A.9: other inpainters'),
+    Inpainter.lama_large: LamaLargeInpainter,
+    Inpainter.lama_mpe: LamaMPEInpainter,
     Inpainter.sd: _not_ported('sd', 'A.13: Stable Diffusion'),
     Inpainter.none: NoneInpainter,
     Inpainter.original: OriginalInpainter,

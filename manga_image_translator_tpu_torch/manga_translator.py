@@ -9,11 +9,12 @@ post-translation hallucination / target-language checks, and batch +
 concurrent translation modes.
 
 Port notes: the stage runners dispatch into the port's own registries;
-detection, OCR and mask refinement run on the CUDA card (or the CPU when a
-Python caller passes ``use_gpu=False``). Stage times are taken with the
-device synchronised at each stage edge. Batch mode (``translate_batch`` and
-its pre-passes), colorization, upscaling and the text renderers wait for
-later slices of the port (ROADMAP A.6, A.12).
+detection, OCR, mask refinement and LaMa inpainting run on the CUDA card
+(or the CPU when a Python caller passes ``use_gpu=False``); rendering is
+host code. Stage times are taken with the device synchronised at each
+stage edge. Batch mode (``translate_batch`` and its pre-passes),
+colorization and upscaling wait for later slices of the port (ROADMAP
+A.6, A.12).
 """
 from __future__ import annotations
 
@@ -665,11 +666,26 @@ class MangaTranslator:
             self.verbose)
 
     async def _run_text_rendering(self, config: Config, ctx: Context):
+        from . import rendering
         if config.render.renderer == Renderer.none:
             return ctx.img_inpainted
-        raise NotImplementedError(
-            f'renderer "{config.render.renderer.value}" is not ported yet '
-            f'(ROADMAP A.6: host rendering modules)')
+        if (config.render.renderer == Renderer.manga2Eng
+                and ctx.text_regions and ctx.text_regions[0].target_lang == 'ENG'):
+            return await rendering.dispatch_eng_render(
+                np.copy(ctx.img_inpainted), ctx.img_rgb, ctx.text_regions,
+                self.font_path, config.render.line_spacing or 0,
+                config.render.disable_font_border)
+        if config.render.renderer == Renderer.manga2EngPillow:
+            return await rendering.dispatch_eng_render_pillow(
+                np.copy(ctx.img_inpainted), ctx.img_rgb, ctx.text_regions,
+                self.font_path, config.render.line_spacing or 0,
+                config.render.disable_font_border)
+        return await rendering.dispatch(
+            np.copy(ctx.img_inpainted), ctx.text_regions, self.font_path,
+            config.render.font_size, config.render.font_size_offset,
+            config.render.font_size_minimum,
+            not config.render.no_hyphenation, None,
+            config.render.line_spacing, config.render.disable_font_border)
 
 
 # Canonical (language, script-or-region) forms for every code that can appear

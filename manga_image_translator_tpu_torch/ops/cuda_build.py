@@ -36,6 +36,8 @@ SOURCES = {
     'bilateral': 'bilateral.cu',
     'decode_step': 'decode_step.cu',
     'charhead': 'charhead.cu',
+    'fourier_unit': 'fourier_unit.cu',
+    'conv_stream': 'conv_stream.cu',
 }
 # kernel name -> (C entry point, its argument types); every entry point
 # returns a cudaError_t as int
@@ -43,6 +45,8 @@ ENTRY_POINTS = {
     'bilateral': ('mit_bilateral_u8', [_P, _P, _I, _I, _I, _I, _F, _F, _P]),
     'decode_step': ('mit_decode_step', [_I] * 4 + [_P] * 28),
     'charhead': ('mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 8),
+    'fourier_unit': ('mit_fourier_unit', [_P] * 10 + [_I] * 5 + [_P]),
+    'conv_stream': ('mit_conv_stream', [_P] * 4 + [_I] * 10 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}

@@ -1,6 +1,7 @@
 """PyTorch port, on the card only: each CUDA kernel (K1 bilateral, K2
-decoder step, K3 char-head top-k) against its plain PyTorch version on the
-same CUDA inputs, at small and ragged shapes, and the wrappers' refusals.
+decoder step, K3 char-head top-k, K4 FourierUnit, K5 streaming conv)
+against its plain PyTorch version on the same CUDA inputs, at small,
+ragged and full-width shapes, and the wrappers' refusals.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -12,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from manga_image_translator_tpu_torch.models import ocr48
-from manga_image_translator_tpu_torch.ops import bilateral, charhead, cuda_build
+from manga_image_translator_tpu_torch.models import lama, ocr48
+from manga_image_translator_tpu_torch.ops import (bilateral, charhead,
+                                                  conv_stream, cuda_build,
+                                                  fourier_unit)
 from manga_image_translator_tpu_torch.ops import decode_step as dops
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +138,114 @@ def test_char_topk_kernel_matches_plain(dev, model, k):
         gap = (logits.gather(1, got_i) - logits.gather(1, ref_i)).abs()[bad]
         assert gap.max().item() < 2e-2
     torch.testing.assert_close(got_v, ref_v, rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def f32_references():
+    """Plain versions in true f32 on the card: no TF32 in matmuls (the
+    port's default) nor in cuDNN convolutions (switched on by the port)."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-6)).item()
+
+
+def test_new_wrappers_refuse_rather_than_fall_back(dev):
+    with pytest.raises(TypeError):
+        fourier_unit.fourier_unit(
+            torch.zeros((1, 8, 8, 4), dtype=torch.float16, device=dev),
+            torch.zeros((8, 8), device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):      # weights do not fit C
+        fourier_unit.fourier_unit(torch.zeros((1, 8, 8, 4), device=dev),
+                                  torch.zeros((6, 6), device=dev),
+                                  torch.zeros(6, device=dev))
+    with pytest.raises(ValueError):      # a kernel width it is not built for
+        conv_stream.conv2d_stream(torch.zeros((1, 9, 9, 4), device=dev),
+                                  torch.zeros((2, 2, 4, 4), device=dev))
+    with pytest.raises(TypeError):       # f32 in, bf16 out is not served
+        conv_stream.conv2d_stream(torch.zeros((1, 9, 9, 4), device=dev),
+                                  torch.zeros((3, 3, 4, 4), device=dev),
+                                  out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize('shape', [(1, 32, 32, 192), (2, 24, 21, 192),
+                                   (1, 17, 40, 40)],
+                         ids=['even', 'odd-w', 'ragged'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_fourier_unit_kernel_matches_plain(dev, f32_references, shape,
+                                           dtype):
+    """f32: 1e-4 of the output's max (f32 sums in another order over the
+    dense DFT); bf16 input and output: 1e-2 (the output's rounding)."""
+    n, h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(h * w)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w_spec = torch.randn((2 * c, 2 * c), generator=g, device=dev) * 0.05
+    b_spec = torch.randn((2 * c,), generator=g, device=dev) * 0.1
+    before = cuda_build.LAUNCHES['fourier_unit']
+    got = fourier_unit.fourier_unit(x, w_spec, b_spec)
+    assert cuda_build.LAUNCHES['fourier_unit'] == before + 1
+    ref = fourier_unit.fourier_unit_ref(x, w_spec, b_spec)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel(got, ref) < (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize('case', ['stem', 'final'])
+@pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=['f32', 'bf16', 'bf16-f32out'])
+def test_conv_stream_kernel_matches_plain(dev, f32_references, case,
+                                          dtypes):
+    """The stem (7x7, 4 -> 64, ReLU) and final (7x7, 64 -> 3) convs on a
+    ragged 70x83 padded input, against the f32 conv of the same inputs:
+    1e-5 of the output's max in f32, 1e-2 for a bf16 output."""
+    in_dt, out_dt = dtypes
+    cin, cout, relu = (4, 64, True) if case == 'stem' else (64, 3, False)
+    g = torch.Generator(device=dev).manual_seed(cin)
+    x = torch.randn((2, 70, 83, cin), generator=g, device=dev).to(in_dt)
+    w = torch.randn((7, 7, cin, cout), generator=g, device=dev) * 0.05
+    b = torch.randn((cout,), generator=g, device=dev)
+    before = cuda_build.LAUNCHES['conv_stream']
+    got = conv_stream.conv2d_stream(x, w, b, relu=relu, out_dtype=out_dt)
+    assert cuda_build.LAUNCHES['conv_stream'] == before + 1
+    ref = conv_stream.conv2d_stream_ref(x, w, b, relu=relu,
+                                        out_dtype=out_dt)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 64, 77, cout) and got.dtype == out_dt
+    assert _rel(got, ref) < (1e-5 if out_dt == torch.float32 else 1e-2)
+
+
+def test_generator_kernels_match_plain_routes(dev, f32_references,
+                                              monkeypatch):
+    """A 2-block generator (full widths) in f32 on a 64x96 crop: K4 and K5
+    against the plain routes with the same weights, 1e-3 absolute on the
+    sigmoid output; 4 K4 calls and 2 K5 calls per forward."""
+    model = lama.fold_bn(lama.build_lama(2, lama.init_state_dict(2), dev))
+    # (2 blocks of random weights keep the sigmoid unsaturated)
+    g = torch.Generator(device=dev).manual_seed(0)
+    img = torch.rand((1, 64, 96, 3), generator=g, device=dev)
+    mask = (torch.rand((1, 64, 96, 1), generator=g, device=dev) < 0.3
+            ).float()
+    img = img * (1 - mask)
+    cuda_build.reset_launch_counts()
+    with torch.no_grad():
+        got = model(img, mask)
+    counts = cuda_build.launch_counts()
+    assert counts['fourier_unit'] == 4 and counts['conv_stream'] == 2
+    monkeypatch.setattr(lama, 'fourier_unit', fourier_unit.fourier_unit_ref)
+    monkeypatch.setattr(lama, 'conv2d_stream', conv_stream.conv2d_stream_ref)
+    with torch.no_grad():
+        ref = model(img, mask)
+    torch.cuda.synchronize()
+    assert ((ref > 0.01) & (ref < 0.99)).float().mean().item() > 0.5
+    assert (got - ref).abs().max().item() < 1e-3

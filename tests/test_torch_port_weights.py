@@ -17,7 +17,9 @@ from manga_image_translator_tpu.models import dbnet as jax_dbnet
 from manga_image_translator_tpu.models import ocr48 as jax_ocr48
 from manga_image_translator_tpu.models.torch_loader import convert_state_dict
 from manga_image_translator_tpu_torch.models import dbnet, ocr48
-from manga_image_translator_tpu_torch.ops import bilateral, charhead
+from manga_image_translator_tpu_torch.ops import (bilateral, charhead,
+                                                  conv_stream, cuda_build,
+                                                  fourier_unit)
 from manga_image_translator_tpu_torch.weights import (load_state_dict_into,
                                                       torch_state_dict_from_jax)
 
@@ -89,6 +91,14 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.detection.default\n'
         'import manga_image_translator_tpu_torch.ocr.model_48px\n'
         'import manga_image_translator_tpu_torch.mask_refinement\n'
+        'import manga_image_translator_tpu_torch.inpainting\n'
+        'import manga_image_translator_tpu_torch.inpainting.inpainting_lama\n'
+        'import manga_image_translator_tpu_torch.models.lama\n'
+        'import manga_image_translator_tpu_torch.ops.fourier_unit\n'
+        'import manga_image_translator_tpu_torch.ops.conv_stream\n'
+        'import manga_image_translator_tpu_torch.rendering\n'
+        'import manga_image_translator_tpu_torch.rendering.text_render_eng\n'
+        'import manga_image_translator_tpu_torch.rendering.hyphenation\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
@@ -122,3 +132,24 @@ def test_wrappers_reject_unknown_device():
         bilateral.bilateral_filter_batch(meta)
     with pytest.raises(ValueError):
         charhead.char_topk(torch.zeros((4, 320), device='meta'), {}, 5)
+    x = torch.zeros((1, 8, 8, 4), device='meta')
+    with pytest.raises(ValueError):
+        fourier_unit.fourier_unit(x, torch.zeros((8, 8), device='meta'),
+                                  torch.zeros(8, device='meta'))
+    with pytest.raises(ValueError):
+        conv_stream.conv2d_stream(x, torch.zeros((3, 3, 4, 2),
+                                                 device='meta'))
+
+
+def test_new_wrappers_use_plain_version_on_cpu():
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(1, 6, 7, 2).astype(np.float32))
+    w = torch.from_numpy(rs.randn(4, 4).astype(np.float32))
+    b = torch.from_numpy(rs.randn(4).astype(np.float32))
+    before = dict(cuda_build.LAUNCHES)
+    assert torch.equal(fourier_unit.fourier_unit(x, w, b),
+                       fourier_unit.fourier_unit_ref(x, w, b))
+    wc = torch.from_numpy(rs.randn(3, 3, 2, 5).astype(np.float32))
+    assert torch.equal(conv_stream.conv2d_stream(x, wc, relu=True),
+                       conv_stream.conv2d_stream_ref(x, wc, relu=True))
+    assert cuda_build.LAUNCHES == before      # plain versions count nothing
