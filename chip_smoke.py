@@ -22,7 +22,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rendered one only inside the text boxes; then runs the literal
    ``python -m manga_image_translator_tpu_torch local`` command in a
    process of its own;
-5. times each kernel (CUDA events, median of 25 after warm-up) beside its
+5. times each kernel (CUDA events around 5 back-to-back calls, median of
+   5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
    computes the least time the card could take (``bound_ms``); traces one
    LaMa forward to split its device time between K4, K5 and cuDNN;
@@ -30,9 +31,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 It exits non-zero on any failure, and when CUDA is unavailable.
 Weights are random, made from fixed seeds (MIT_TPU_ALLOW_RANDOM_WEIGHTS=1).
+
+Two more modes compare two checkouts on one card:
+
+* ``--times-only``: builds the kernels, runs step 5's kernel timings and
+  times the inpainting stage on one page (``phase_inpaint_page``); no
+  checks, no main path, no traces. Its last line is a JSON object of
+  those numbers.
+* ``--compare-with DIR --pairs N``: DIR is the root of another checkout
+  inside this one (for example the parent commit unpacked with ``git
+  archive`` into ``build/parent``). Copies this script there and runs
+  ``--times-only`` N times on each side in ABBA order (DIR, here, here,
+  DIR, ...), each run a process of its own, so both sides are measured by
+  the same code in one call. Prints every run and, per number, each side's
+  median, lowest and highest.
 """
 from __future__ import annotations
 
+import argparse
 import asyncio
 import collections
 import copy
@@ -78,20 +94,26 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
-    """Median per-call device time of ``fn`` over ``iters`` timed calls."""
+def cuda_ms(fn, iters: int = 25, warmup: int = 3, reps: int = 5) -> float:
+    """Per-call device time of ``fn``: the median, over ``iters // reps``
+    samples, of CUDA events around ``reps`` back-to-back calls over
+    ``reps``. Calls queue up behind each other, so a wrapper's host time
+    hides behind the device's work wherever it is shorter (one call between
+    two events would count it as device time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    reps = min(reps, iters)
     times = []
-    for _ in range(iters):
+    for _ in range(max(1, iters // reps)):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -346,33 +368,42 @@ def check_lama(results):
     require(not torch.backends.cuda.matmul.allow_tf32,
             'TF32 matmuls are on: the plain FourierUnit is no f32 reference')
 
-    # K4 at a 1024² crop's trunk and at the full-page path's odd width
-    # (a 2048 x 1448 page: 256 x 181), f32: 1e-4 of the output's max
+    # K4 (3xTF32 on the tensor cores) at a 1024² crop's trunk and at the
+    # full-page path's odd width (a 2048 x 1448 page: 256 x 181): f32 1e-4
+    # of the output's max; bf16 in and out (the main path's types) 1e-2
     k4_err = 0.0
     for shape in ((1, CROP // 8, CROP // 8, FU_C), (1, 256, 181, FU_C)):
         x, w_spec, b_spec = k4_inputs(shape)
-        got = k4.fourier_unit(x, w_spec, b_spec)
-        ref = k4.fourier_unit_ref(x, w_spec, b_spec)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        emit({'phase': 'check', 'kernel': 'fourier_unit', 'shape': shape,
-              'dtype': 'float32', 'max_abs_err': err, 'max_rel_err': rel,
-              'tol_rel': 1e-4})
-        require(rel <= 1e-4, f'fourier_unit {shape}: rel err {rel}')
-        k4_err = max(k4_err, err)
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            xi = x.to(dt)
+            got = k4.fourier_unit(xi, w_spec, b_spec)
+            ref = k4.fourier_unit_ref(xi, w_spec, b_spec)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            rel = err / float(ref.float().abs().max())
+            emit({'phase': 'check', 'kernel': 'fourier_unit', 'shape': shape,
+                  'dtype': str(dt), 'max_abs_err': err, 'max_rel_err': rel,
+                  'tol_rel': tol})
+            require(rel <= tol, f'fourier_unit {shape} {dt}: rel err {rel}')
+            if dt == torch.float32:
+                k4_err = max(k4_err, err)
     results['fourier_unit']['max_abs_err'] = k4_err
 
-    # K5: stem and final conv of a 1024² crop, f32 (1e-5) and in the main
-    # path's types against the f32 conv of the same bf16 inputs (1e-2)
+    # K5: stem and final conv of a 1024² crop. f32 input (the CUDA-core
+    # body) against the f32 conv, 1e-5; bf16 input (the tensor-core route,
+    # bf16 weights) in the main path's types against the f32 conv of the
+    # same bf16 input and bf16-rounded weights: 1e-5 for the final conv's
+    # f32 output, 1e-2 for the stem's bf16 output
     k5_err = 0.0
     for name, (_, _, relu, out_dt) in K5_CONVS.items():
         x, w, b = k5_inputs(name, 1, CROP, CROP)
-        for in_dt, o_dt, tol in ((torch.float32, torch.float32, 1e-5),
-                                 (torch.bfloat16, out_dt, 1e-2)):
+        for in_dt, o_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, out_dt)):
+            tol = 1e-5 if o_dt == torch.float32 else 1e-2
             xi = x.to(in_dt)
+            w_ref = w if in_dt == torch.float32 else w.to(in_dt).float()
             got = k5.conv2d_stream(xi, w, b, relu=relu, out_dtype=o_dt)
-            ref = k5.conv2d_stream_ref(xi, w, b, relu=relu,
+            ref = k5.conv2d_stream_ref(xi, w_ref, b, relu=relu,
                                        out_dtype=torch.float32)
             torch.cuda.synchronize()
             err = float((got.float() - ref).abs().max())
@@ -862,14 +893,23 @@ def times_lama(results, forwards):
     from manga_image_translator_tpu_torch.ops import conv_stream as k5
     from manga_image_translator_tpu_torch.ops import fourier_unit as k4
     bf16 = torch.bfloat16
+    # K5 as the generator calls it, on weights it packed once (a checkout
+    # from before the tensor-core route has no pack_weights)
+    pack = getattr(k5, 'pack_weights', None)
+
+    def packed(wt):
+        return {'packed': pack(wt)} if pack is not None else {}
     x, w_spec, b_spec = k4_inputs((1, 16, 16, FU_C))
     x = x.to(bf16)
     k4_host = host_us(lambda: k4.fourier_unit(x, w_spec, b_spec))
     xs, wt, b = k5_inputs('stem', 1, 16, 16)
     xs = xs.to(bf16)
-    k5_host = host_us(lambda: k5.conv2d_stream(xs, wt, b, relu=True))
+    kw = packed(wt)
+    k5_host = host_us(lambda: k5.conv2d_stream(xs, wt, b, relu=True, **kw))
     emit({'phase': 'host_us_per_call', 'fourier_unit': k4_host,
           'conv_stream': k5_host})
+    results['fourier_unit']['host_us_per_call'] = k4_host
+    results['conv_stream']['host_us_per_call'] = k5_host
     for at, (n, h, w) in lama_shapes(forwards).items():
         shape = (n, h // 8, w // 8, FU_C)
         x, w_spec, b_spec = k4_inputs(shape)
@@ -895,8 +935,9 @@ def times_lama(results, forwards):
             def library():
                 y = F.conv2d(x_lib, w_lib, b_lib)
                 return (F.relu(y) if relu else y).to(out_dt)
+            kw = packed(wt)
             c = {'ms': cuda_ms(lambda: k5.conv2d_stream(
-                     xc, wt, b, relu=relu, out_dtype=out_dt)),
+                     xc, wt, b, relu=relu, out_dtype=out_dt, **kw)),
                  'plain_ms': cuda_ms(lambda: k5.conv2d_stream_ref(
                      xc, wt, b, relu=relu, out_dtype=out_dt), iters=10),
                  'library_ms': cuda_ms(library)}
@@ -919,8 +960,9 @@ def times_lama(results, forwards):
 
 def phase_lama_trace(forwards):
     """One bf16 generator forward at the pipeline's most-run crop shape
-    under torch.profiler: device µs by kernel (K4's GEMM stages, K5, the
-    rest: cuDNN convs, transposed convs, elementwise), busy and span."""
+    under torch.profiler: device µs by kernel (K4's five GEMM stages, K5,
+    the rest: cuDNN convs, transposed convs, elementwise), busy and span;
+    fails if either kernel's role is empty (a renamed kernel)."""
     from torch.profiler import ProfilerActivity, profile
     from manga_image_translator_tpu_torch.models import lama
     n, h, w = lama_shapes(forwards)['pipeline_most']
@@ -946,9 +988,11 @@ def phase_lama_trace(forwards):
     require(ks, 'the LaMa trace holds no kernels')
 
     def role(name):
+        # K5: conv_stream_tc (bf16, tensor cores) or conv_stream (CUDA
+        # cores); K4: its five fu_gemm_tf32x3 launches
         if 'conv_stream' in name:
             return 'K5 conv_stream'
-        if '::gemm<' in name:
+        if 'fu_gemm_tf32x3' in name:
             return 'K4 fourier_unit'
         return 'other'
     by_role = collections.defaultdict(float)
@@ -956,6 +1000,16 @@ def phase_lama_trace(forwards):
     for e in ks:
         by_role[role(e['name'])] += e['dur']
         by_name[e['name'][:90]] += e['dur']
+    require(by_role['K4 fourier_unit'] > 0 and by_role['K5 conv_stream'] > 0,
+            f'the trace attributes no time to K4 or K5: {dict(by_role)}')
+    # K4's launches come five to a call, in stage order
+    k4 = sorted((e for e in ks if role(e['name']) == 'K4 fourier_unit'),
+                key=lambda e: e['ts'])
+    require(len(k4) % len(K4_STAGES) == 0,
+            f'{len(k4)} K4 launches: not {len(K4_STAGES)} per call')
+    k4_stage_us = collections.defaultdict(float)
+    for i, e in enumerate(k4):
+        k4_stage_us[K4_STAGES[i % len(K4_STAGES)]] += e['dur']
     span = max(e['ts'] + e['dur'] for e in ks) - min(e['ts'] for e in ks)
     ops = []
     for a in prof.key_averages():
@@ -966,11 +1020,14 @@ def phase_lama_trace(forwards):
     emit({'phase': 'lama_trace', 'forward': [n, h, w], 'dtype': 'bfloat16',
           'kernels': len(ks), 'busy_us': sum(e['dur'] for e in ks),
           'span_us': span, 'us_by_role': dict(by_role),
+          'k4_calls': len(k4) // len(K4_STAGES),
+          'k4_us_by_stage': dict(k4_stage_us),
           'top_us': dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
           'top_ops_us_calls': [[k, d, c] for d, k, c in
                                sorted(ops, reverse=True)[:12]]})
 
 
+K4_STAGES = ['w', 'h', 'spectral_conv', 'inverse_h', 'inverse_w']
 STEP_ROLES = ['qkv_ln', 'self_attention', 'out_proj', 'cross_q_ln',
               'cross_attention', 'cross_out_proj', 'ff1_ln', 'ff2_split_k',
               'ff2_epilogue']
@@ -1032,11 +1089,143 @@ def phase_trace():
           'busy_us': busy, 'span_us': span})
 
 
-def main() -> int:
+def phase_inpaint_page(repeats=5):
+    """Wall ms of the inpainting stage (``inpainting.dispatch``: crop
+    plan, generator forwards, copies back, composite) on the second
+    synthetic page with its strokes' dilated mask, the default inpainter
+    config (``lama_large``, bf16, size 2048), device-synchronised: one
+    warm-up call (it builds the generator), then ``repeats`` timed."""
+    import cv2
+    import numpy as np
+    from manga_image_translator_tpu_torch import inpainting
+    from manga_image_translator_tpu_torch.config import (Inpainter,
+                                                         InpainterConfig)
+    page_dir = os.path.join(WORK, 'pages')
+    make_pages(page_dir)
+    img = cv2.cvtColor(cv2.imread(os.path.join(page_dir, 'page1.png')),
+                       cv2.COLOR_BGR2RGB)
+    gray = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
+    mask = cv2.dilate(((gray < 128) * 255).astype(np.uint8),
+                      np.ones((5, 5), np.uint8))
+    cfg = InpainterConfig()
+    inp = inpainting.get_inpainter(Inpainter.lama_large)
+
+    def run():
+        out = asyncio.run(inpainting.dispatch(
+            Inpainter.lama_large, img, mask, cfg, cfg.inpainting_size,
+            'cuda'))
+        torch.cuda.synchronize()
+        return out
+    run()
+    inp.forwards = []
+    ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(ms)
+    emit({'phase': 'inpaint_page', 'page': 'page1.png', 'ms': ms,
+          'median_ms': median,
+          'forwards_per_call': [list(f) for f in
+                                inp.forwards[:len(inp.forwards) // repeats]]})
+    return median
+
+
+# kernel -> (route, source, the TPU kernel it replaces)
+META = {
+    'bilateral': ('cuda', 'manga_image_translator_tpu_torch/csrc/bilateral.cu',
+                  'manga_image_translator_tpu/ops/pallas_bilateral.py:395'),
+    'decode_step': ('cuda', 'manga_image_translator_tpu_torch/csrc/decode_step.cu',
+                    'manga_image_translator_tpu/ops/pallas_decode.py:413'),
+    'charhead': ('cuda', 'manga_image_translator_tpu_torch/csrc/charhead.cu',
+                 'manga_image_translator_tpu/ops/pallas_charhead.py:98'),
+    'fourier_unit': ('cuda',
+                     'manga_image_translator_tpu_torch/csrc/fourier_unit.cu',
+                     'manga_image_translator_tpu/ops/pallas_spectral.py:294'),
+    'conv_stream': ('cuda',
+                    'manga_image_translator_tpu_torch/csrc/conv_stream.cu',
+                    'manga_image_translator_tpu/ops/pallas_conv.py:145'),
+}
+# the crop bucket the smoke's pipeline runs most (6 crops of 256 x 640)
+SMOKE_FORWARD = (6, 256, 640)
+
+
+def times_only() -> int:
+    """Build, kernel timings and the page inpaint; the last line holds
+    the numbers by name."""
+    phase_card()
+    phase_build()
+    results = {name: {} for name in META}
+    phase_times(results, [SMOKE_FORWARD])
+    numbers = {'inpaint_page1_ms': phase_inpaint_page()}
+    for name, r in results.items():
+        for key in ('ms', 'library_ms', 'host_us_per_call'):
+            if r.get(key) is not None:
+                numbers[f'{name}.{key}'] = r[key]
+        for at, rr in r.items():
+            if at.startswith('at_'):
+                numbers[f'{name}.{at}.ms'] = rr['ms']
+                numbers[f'{name}.{at}.library_ms'] = rr['library_ms']
+    emit(numbers)
+    return 0
+
+
+def compare(other: str, pairs: int) -> int:
+    """``--times-only`` in ``other`` and here, alternately (ABBA), each
+    run in a process of its own; ``other`` gets a copy of this script."""
+    phase_card()
+    other = os.path.abspath(other)
+    require(os.path.isdir(os.path.join(other,
+                                       'manga_image_translator_tpu_torch')),
+            f'{other} is not the root of a checkout')
+    copy_path = os.path.join(other, 'chip_smoke_compare.py')
+    shutil.copyfile(os.path.abspath(__file__), copy_path)
+    sides = {'other': copy_path, 'this': os.path.abspath(__file__)}
+    runs = {'other': [], 'this': []}
+    for i in range(pairs):
+        order = ('other', 'this') if i % 2 == 0 else ('this', 'other')
+        for side in order:
+            res = subprocess.run(
+                [sys.executable, sides[side], '--times-only'],
+                cwd=os.path.dirname(sides[side]), capture_output=True,
+                text=True, timeout=900)
+            require(res.returncode == 0,
+                    f'--times-only in {side} failed (exit {res.returncode}):'
+                    f'\n{res.stderr[-3000:]}')
+            numbers = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[side].append(numbers)
+            emit({'phase': 'compare_run', 'pair': i, 'side': side,
+                  **numbers})
+    summary = {}
+    for key in runs['this'][0]:
+        summary[key] = {}
+        for side in ('other', 'this'):
+            vals = [r[key] for r in runs[side] if r.get(key) is not None]
+            if vals:
+                summary[key][side] = {'median': statistics.median(vals),
+                                      'min': min(vals), 'max': max(vals)}
+    emit({'phase': 'compare', 'other': other, 'pairs': pairs,
+          'numbers': summary})
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--times-only', action='store_true',
+                    help='build, time the kernels and a page inpaint, '
+                         'print the numbers last; nothing else')
+    ap.add_argument('--compare-with', metavar='DIR',
+                    help='another checkout\'s root: alternate --times-only '
+                         'runs there and here')
+    ap.add_argument('--pairs', type=int, default=10,
+                    help='runs per side for --compare-with (default 10)')
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available; this smoke test needs an '
               'NVIDIA card', file=sys.stderr)
         return 2
+    if args.compare_with:
+        return compare(args.compare_with, args.pairs)
     sys.path.insert(0, ROOT)
     os.environ.setdefault('MIT_TPU_ALLOW_RANDOM_WEIGHTS', '1')
     os.environ.setdefault('MIT_TPU_MODEL_DIR',
@@ -1044,25 +1233,13 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(OUT)
     import manga_image_translator_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.times_only:
+        return times_only()
 
     t_start = time.perf_counter()
     phase_card()
     build_seconds = phase_build()
-    meta = {
-        'bilateral': ('cuda', 'manga_image_translator_tpu_torch/csrc/bilateral.cu',
-                      'manga_image_translator_tpu/ops/pallas_bilateral.py:395'),
-        'decode_step': ('cuda', 'manga_image_translator_tpu_torch/csrc/decode_step.cu',
-                        'manga_image_translator_tpu/ops/pallas_decode.py:413'),
-        'charhead': ('cuda', 'manga_image_translator_tpu_torch/csrc/charhead.cu',
-                     'manga_image_translator_tpu/ops/pallas_charhead.py:98'),
-        'fourier_unit': ('cuda',
-                         'manga_image_translator_tpu_torch/csrc/fourier_unit.cu',
-                         'manga_image_translator_tpu/ops/pallas_spectral.py:294'),
-        'conv_stream': ('cuda',
-                        'manga_image_translator_tpu_torch/csrc/conv_stream.cu',
-                        'manga_image_translator_tpu/ops/pallas_conv.py:145'),
-    }
-    results = {name: {} for name in meta}
+    results = {name: {} for name in META}
     phase_check(results)
     counts, forwards, page_dir, cfg_path = phase_pipeline()
     phase_cli(page_dir, cfg_path)
@@ -1071,7 +1248,7 @@ def main() -> int:
     phase_trace()
     phase_lama_trace(forwards)
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces) in META.items():
         r = results[name]
         kernels.append({
             'name': name, 'route': route, 'source': source,

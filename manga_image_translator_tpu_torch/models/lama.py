@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_stream import conv2d_stream
+from ..ops.conv_stream import conv2d_stream, pack_weights
 from ..ops.fourier_unit import fourier_unit
 from ..weights import load_state_dict_into, torch_state_dict_from_jax
 
@@ -73,14 +73,15 @@ def _bn_affine(bn: nn.Module, c: int, device, dtype=torch.float32
 
 
 def _folded_conv(conv: nn.Conv2d, bn: nn.Module
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(HWIO f32 weight, f32 bias) of conv followed by bn."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(HWIO f32 weight, f32 bias, the weight packed for K5's tensor-core
+    route, or None off the card) of conv followed by bn."""
     cout = conv.weight.shape[0]
     scale, shift = _bn_affine(bn, cout, conv.weight.device)
     w = conv.weight.float() * scale[:, None, None, None]
     b = shift if conv.bias is None else conv.bias.float() * scale + shift
-    return (w.detach().permute(2, 3, 1, 0).contiguous(),
-            b.detach().contiguous())
+    w = w.detach().permute(2, 3, 1, 0).contiguous()
+    return w, b.detach().contiguous(), pack_weights(w)
 
 
 class _VersionCache:
@@ -298,23 +299,25 @@ class LamaGenerator(nn.Module):
         x: NHWC → NCHW (channels_last)."""
         stem = self.model[1]
         conv = stem.ffc.convl2l
-        w, b = self._stem_w.get(
+        w, b, packed = self._stem_w.get(
             [conv.weight] + list(stem.bn_l.state_dict(keep_vars=True)
                                  .values()),
             lambda: _folded_conv(conv, stem.bn_l))
         xp = _reflect(x.permute(0, 3, 1, 2), 3)
-        y = conv2d_stream(xp.permute(0, 2, 3, 1), w, b, relu=True)
+        y = conv2d_stream(xp.permute(0, 2, 3, 1), w, b, relu=True,
+                          packed=packed)
         return y.permute(0, 3, 1, 2)
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         """model.{up0+9..10}: reflect pad 3, 7×7 64 → 3 conv through K5,
         f32 out. x: NCHW (channels_last) → NHWC."""
         conv = self.model[self.up0 + 3 * N_DOWN + 1]
-        w, b = self._final_w.get([conv.weight, conv.bias],
-                                 lambda: _folded_conv(conv, nn.Identity()))
+        w, b, packed = self._final_w.get(
+            [conv.weight, conv.bias],
+            lambda: _folded_conv(conv, nn.Identity()))
         xp = _reflect(x, 3)
         return conv2d_stream(xp.permute(0, 2, 3, 1), w, b,
-                             out_dtype=torch.float32)
+                             out_dtype=torch.float32, packed=packed)
 
     def forward(self, img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """img (N, H, W, 3) in [0, 1], already masked by the caller

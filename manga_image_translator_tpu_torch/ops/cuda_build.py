@@ -10,7 +10,8 @@ entry point gets its argument and result types once, when the library is
 loaded (``entry``), not at every launch.
 
 Every kernel wrapper keeps a plain-integer launch counter here:
-``LAUNCHES[name]`` grows by one each time the wrapper launches its kernel.
+``LAUNCHES[name]`` grows by one each time the wrapper launches its kernel
+(whichever of the library's entry points it calls).
 """
 from __future__ import annotations
 
@@ -39,15 +40,30 @@ SOURCES = {
     'fourier_unit': 'fourier_unit.cu',
     'conv_stream': 'conv_stream.cu',
 }
-# kernel name -> (C entry point, its argument types); every entry point
-# returns a cudaError_t as int
+# entry name -> (kernel whose library holds it, C entry point, its argument
+# types); every entry point returns an int: a cudaError_t, except
+# conv_stream_tc_packed_elems, a count
 ENTRY_POINTS = {
-    'bilateral': ('mit_bilateral_u8', [_P, _P, _I, _I, _I, _I, _F, _F, _P]),
-    'decode_step': ('mit_decode_step', [_I] * 4 + [_P] * 28),
-    'charhead': ('mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 8),
-    'fourier_unit': ('mit_fourier_unit', [_P] * 10 + [_I] * 5 + [_P]),
-    'conv_stream': ('mit_conv_stream', [_P] * 4 + [_I] * 10 + [_P]),
+    'bilateral': ('bilateral', 'mit_bilateral_u8',
+                  [_P, _P, _I, _I, _I, _I, _F, _F, _P]),
+    'decode_step': ('decode_step', 'mit_decode_step', [_I] * 4 + [_P] * 28),
+    'charhead': ('charhead', 'mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 8),
+    'fourier_unit': ('fourier_unit', 'mit_fourier_unit',
+                     [_P] * 10 + [_I] * 5 + [_P]),
+    'conv_stream': ('conv_stream', 'mit_conv_stream',
+                    [_P] * 4 + [_I] * 8 + [_P]),
+    'conv_stream_tc': ('conv_stream', 'mit_conv_stream_tc',
+                       [_P] * 4 + [_I] * 9 + [_P]),
+    'conv_stream_tc_pack': ('conv_stream', 'mit_conv_stream_tc_pack',
+                            [_P] * 2 + [_I] * 4 + [_P]),
+    'conv_stream_tc_packed_elems': ('conv_stream',
+                                    'mit_conv_stream_tc_packed_elems',
+                                    [_I] * 4),
 }
+
+# the cudaError_t (cudaErrorInvalidValue) an entry point returns when it
+# refuses a shape, before it launches anything
+REFUSED = 1
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -127,11 +143,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str) -> Callable[..., int]:
-    """The C entry point of kernel ``name``, typed once when first asked."""
+    """The C entry point ``name`` (a key of ``ENTRY_POINTS``), typed once
+    when first asked."""
     fn = _entries.get(name)
     if fn is None:
-        symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(library(name), symbol)
+        kernel, symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(library(kernel), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         _entries[name] = fn

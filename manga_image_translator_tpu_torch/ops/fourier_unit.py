@@ -23,7 +23,9 @@ The kernel computes the transforms as dense DFTs against twiddle tables
 the device) and keeps every spectrum in the layout ``(N, H, K, 2C)`` with
 the real parts in channels ``[0, C)`` and the imaginary parts in
 ``[C, 2C)``. The 1×1 conv's weights are de-interleaved into that order once
-per weight set (``spectral_weights``).
+per weight set (``spectral_weights``). Every product runs on the tensor
+cores as 3xTF32 (each f32 operand split into two TF32 parts, three
+passes), which keeps f32 accuracy; C must be a multiple of 8 on the card.
 """
 from __future__ import annotations
 
@@ -97,10 +99,13 @@ _TABLES: Dict[Tuple[int, int, torch.device], Dict[str, torch.Tensor]] = {}
 
 def _device_tables(h: int, w: int, device: torch.device
                    ) -> Dict[str, torch.Tensor]:
+    """``dft_tables`` on the device, each row zero-padded to a multiple of
+    4 floats (the kernel's 16-byte copies; it takes lda = that width)."""
     key = (h, w, device)
     tabs = _TABLES.get(key)
     if tabs is None:
-        tabs = {name: torch.from_numpy(arr).to(device)
+        tabs = {name: torch.from_numpy(np.pad(
+                    arr, ((0, 0), (0, -arr.shape[1] % 4)))).to(device)
                 for name, arr in dft_tables(h, w).items()}
         _TABLES[key] = tabs
     return tabs
@@ -121,6 +126,16 @@ def spectral_weights(w_spec: torch.Tensor, b_spec: torch.Tensor
     return wq.contiguous(), torch.cat([bt[0::2], bt[1::2]]).contiguous()
 
 
+def _check_weights(c: int, w_spec: torch.Tensor, b_spec: torch.Tensor,
+                   device: torch.device) -> None:
+    if tuple(w_spec.shape) != (2 * c, 2 * c) or tuple(b_spec.shape) != (2 * c,):
+        raise ValueError(f'fourier_unit: weights {tuple(w_spec.shape)} / '
+                         f'{tuple(b_spec.shape)} do not fit C={c}')
+    if w_spec.device != device or b_spec.device != device:
+        raise ValueError('fourier_unit: weights and input on different '
+                         'devices')
+
+
 # id(w_spec) -> (w_spec ref, its state, b_spec ref, b_spec state, packed
 # weights); an entry leaves with its w_spec
 _PACKED: Dict[int, tuple] = {}
@@ -134,12 +149,13 @@ def _state(t: torch.Tensor) -> Tuple[int, int]:
 
 def _packed(w_spec: torch.Tensor, b_spec: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``spectral_weights`` once per weight set."""
+    """``spectral_weights`` once per weight set (checked when packed)."""
     key = id(w_spec)
     hit = _PACKED.get(key)
     if (hit is not None and hit[0]() is w_spec and hit[1] == _state(w_spec)
             and hit[2]() is b_spec and hit[3] == _state(b_spec)):
         return hit[4]
+    _check_weights(w_spec.shape[0] // 2, w_spec, b_spec, w_spec.device)
     packed = spectral_weights(w_spec, b_spec)
     if hit is None or hit[0]() is not w_spec:
         weakref.finalize(w_spec, _PACKED.pop, key, None)
@@ -148,58 +164,67 @@ def _packed(w_spec: torch.Tensor, b_spec: torch.Tensor
     return packed
 
 
-def _check(x: torch.Tensor, w_spec: torch.Tensor,
-           b_spec: torch.Tensor) -> None:
+def _check(x: torch.Tensor) -> None:
     if x.dim() != 4:
         raise ValueError(f'fourier_unit: expected (N, H, W, C), got '
                          f'{tuple(x.shape)}')
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'fourier_unit: expected float32 or bfloat16, got '
                         f'{x.dtype}')
-    c = x.shape[-1]
-    if tuple(w_spec.shape) != (2 * c, 2 * c) or tuple(b_spec.shape) != (2 * c,):
-        raise ValueError(f'fourier_unit: weights {tuple(w_spec.shape)} / '
-                         f'{tuple(b_spec.shape)} do not fit C={c}')
-    n, h, w, _ = x.shape
-    if (max(2 * h, w, 2 * (w // 2 + 1), 2 * c) > MAX_ROWS
+    n, h, w, c = x.shape
+    if (max(2 * h, w, 2 * (w // 2 + 1), 2 * c) > MAX_ROWS or c % 8
             or n * max(h, w // 2 + 1) > MAX_GRID_Z):
         raise ValueError(f'fourier_unit: shape {tuple(x.shape)} outside the '
-                         f'kernel\'s limits (2H, W, 2C <= {MAX_ROWS}; '
-                         f'N * max(H, K) <= {MAX_GRID_Z})')
-    if w_spec.device != x.device or b_spec.device != x.device:
-        raise ValueError('fourier_unit: weights and input on different '
-                         'devices')
+                         f'kernel\'s limits (2H, W, 2C <= {MAX_ROWS}; C a '
+                         f'multiple of 8; N * max(H, K) <= {MAX_GRID_Z})')
 
 
-def _launch(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
-            out: torch.Tensor) -> None:
-    n, h, w, c = x.shape
-    k = w // 2 + 1
-    tabs = _device_tables(h, w, x.device)
-    # the spectra, (N, H, K, 2C) f32 each; ping-pong between two buffers
-    s0 = torch.empty((n, h, k, 2 * c), dtype=torch.float32, device=x.device)
-    s1 = torch.empty_like(s0)
-    p = cuda_build.ptr
-    status = cuda_build.entry(KERNEL)(
-        p(x), p(out), p(wq), p(bq), p(tabs['fwd_w']), p(tabs['fwd_h']),
-        p(tabs['inv_h']), p(tabs['inv_w']), p(s0), p(s1),
-        n, h, w, c, int(x.dtype == torch.bfloat16),
-        cuda_build.current_stream(x.device))
-    cuda_build.check(status, 'fourier_unit kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+# (shape, dtype, device) -> (spectra shape, their half in bytes, the
+# launch's table pointers and sizes): what a call needs beyond its tensors
+_PLANS: Dict[tuple, tuple] = {}
+
+
+def _plan(x: torch.Tensor) -> tuple:
+    key = (x.shape, x.dtype, x.device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check(x)
+        n, h, w, c = x.shape
+        k = w // 2 + 1
+        tabs = _device_tables(h, w, x.device)
+        plan = ((2, n, h, k, 2 * c), n * h * k * 2 * c * 4,
+                tuple(tabs[t].data_ptr()
+                      for t in ('fwd_w', 'fwd_h', 'inv_h', 'inv_w')),
+                (n, h, w, c, int(x.dtype == torch.bfloat16)))
+        _PLANS[key] = plan
+    return plan
 
 
 def fourier_unit(x: torch.Tensor, w_spec: torch.Tensor,
                  b_spec: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) → (N, H, W, C) in x's dtype; one counted call (the
-    kernel runs as five launches)."""
+    kernel runs as five launches of its 3xTF32 tensor-core GEMM). Per
+    call the host looks up the shape's plan and the packed weights,
+    allocates the output and the spectra, and calls the kernel."""
     if x.device.type == 'cpu':
         return fourier_unit_ref(x, w_spec, b_spec)
     if x.device.type != 'cuda':
         raise ValueError(f'fourier_unit: unsupported device {x.device}')
-    _check(x, w_spec, b_spec)
+    spectra_shape, half, tables, dims = _plan(x)
     x = x.contiguous()
+    if x.data_ptr() % 16:           # the kernel's copies are 16-byte
+        x = x.clone()
     wq, bq = _packed(w_spec, b_spec)
+    if wq.shape[0] != 2 * dims[3] or wq.device != x.device:
+        _check_weights(dims[3], w_spec, b_spec, x.device)
     out = torch.empty_like(x)
-    _launch(x, wq, bq, out)
+    # the spectra, (N, H, K, 2C) f32 each, in one buffer; the stages
+    # ping-pong between its halves
+    s0 = torch.empty(spectra_shape, dtype=torch.float32,
+                     device=x.device).data_ptr()
+    status = cuda_build.entry(KERNEL)(
+        x.data_ptr(), out.data_ptr(), wq.data_ptr(), bq.data_ptr(), *tables,
+        s0, s0 + half, *dims, cuda_build.current_stream(x.device))
+    cuda_build.check(status, 'fourier_unit kernel')
+    cuda_build.LAUNCHES[KERNEL] += 1
     return out

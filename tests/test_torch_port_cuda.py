@@ -167,9 +167,17 @@ def test_new_wrappers_refuse_rather_than_fall_back(dev):
         fourier_unit.fourier_unit(torch.zeros((1, 8, 8, 4), device=dev),
                                   torch.zeros((6, 6), device=dev),
                                   torch.zeros(6, device=dev))
+    with pytest.raises(ValueError):      # C not a multiple of 8
+        fourier_unit.fourier_unit(torch.zeros((1, 8, 8, 4), device=dev),
+                                  torch.zeros((8, 8), device=dev),
+                                  torch.zeros(8, device=dev))
     with pytest.raises(ValueError):      # a kernel width it is not built for
         conv_stream.conv2d_stream(torch.zeros((1, 9, 9, 4), device=dev),
                                   torch.zeros((2, 2, 4, 4), device=dev))
+    with pytest.raises(ValueError):      # bf16 outside the tensor cores
+        conv_stream.conv2d_stream(
+            torch.zeros((1, 9, 9, 3), dtype=torch.bfloat16, device=dev),
+            torch.zeros((3, 3, 3, 4), device=dev))
     with pytest.raises(TypeError):       # f32 in, bf16 out is not served
         conv_stream.conv2d_stream(torch.zeros((1, 9, 9, 4), device=dev),
                                   torch.zeros((3, 3, 4, 4), device=dev),
@@ -177,14 +185,19 @@ def test_new_wrappers_refuse_rather_than_fall_back(dev):
 
 
 @pytest.mark.parametrize('shape', [(1, 32, 32, 192), (2, 24, 21, 192),
-                                   (1, 17, 40, 40)],
-                         ids=['even', 'odd-w', 'ragged'])
+                                   (1, 17, 40, 40), (1, 128, 128, 192),
+                                   (1, 256, 181, 192)],
+                         ids=['even', 'odd-w', 'ragged', 'crop1024',
+                              'page-odd-w'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 def test_fourier_unit_kernel_matches_plain(dev, f32_references, shape,
                                            dtype):
-    """f32: 1e-4 of the output's max (f32 sums in another order over the
-    dense DFT); bf16 input and output: 1e-2 (the output's rounding)."""
+    """3xTF32 products against the f32 plain version. f32: 1e-4 of the
+    output's max (three TF32 passes keep f32's accuracy, the sums run in
+    another order over the dense DFT); bf16 input and output: 1e-2 (the
+    output's rounding). (1, 128, 128, 192) is a 1024² crop's trunk,
+    (1, 256, 181, 192) the full-page path's odd width."""
     n, h, w, c = shape
     g = torch.Generator(device=dev).manual_seed(h * w)
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -199,30 +212,58 @@ def test_fourier_unit_kernel_matches_plain(dev, f32_references, shape,
     assert _rel(got, ref) < (1e-4 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize('shape', [(2, 70, 83), (6, 75, 90), (1, 9, 8)],
+                         ids=['ragged', 'n6-off-tile', 'one-tile'])
 @pytest.mark.parametrize('case', ['stem', 'final'])
 @pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.bfloat16),
                                     (torch.bfloat16, torch.float32)],
                          ids=['f32', 'bf16', 'bf16-f32out'])
 def test_conv_stream_kernel_matches_plain(dev, f32_references, case,
-                                          dtypes):
-    """The stem (7x7, 4 -> 64, ReLU) and final (7x7, 64 -> 3) convs on a
-    ragged 70x83 padded input, against the f32 conv of the same inputs:
-    1e-5 of the output's max in f32, 1e-2 for a bf16 output."""
+                                          dtypes, shape):
+    """The stem (7x7, 4 -> 64, ReLU) and final (7x7, 64 -> 3) convs on
+    padded inputs whose outputs are no multiple of the tensor-core tile
+    (8 rows x 32 or 64 columns) in either axis, N up to 6. f32 input: the
+    CUDA-core body against the f32 conv, 1e-5 of the output's max. bf16
+    input: the tensor-core route multiplies bf16 weights (rounded once per
+    weight set, as the JAX kernel feeds its matrix unit the compute dtype),
+    so the reference is the f32 conv of the same bf16 input with the same
+    bf16-rounded weights: 1e-5 for an f32 output (only the sums' order
+    differs), 1e-2 for a bf16 output (its rounding)."""
     in_dt, out_dt = dtypes
+    n, hp, wp = shape
     cin, cout, relu = (4, 64, True) if case == 'stem' else (64, 3, False)
-    g = torch.Generator(device=dev).manual_seed(cin)
-    x = torch.randn((2, 70, 83, cin), generator=g, device=dev).to(in_dt)
+    g = torch.Generator(device=dev).manual_seed(cin + hp)
+    x = torch.randn((n, hp, wp, cin), generator=g, device=dev).to(in_dt)
     w = torch.randn((7, 7, cin, cout), generator=g, device=dev) * 0.05
     b = torch.randn((cout,), generator=g, device=dev)
     before = cuda_build.LAUNCHES['conv_stream']
     got = conv_stream.conv2d_stream(x, w, b, relu=relu, out_dtype=out_dt)
     assert cuda_build.LAUNCHES['conv_stream'] == before + 1
-    ref = conv_stream.conv2d_stream_ref(x, w, b, relu=relu,
-                                        out_dtype=out_dt)
+    w_ref = w if in_dt == torch.float32 else w.to(torch.bfloat16).float()
+    ref = conv_stream.conv2d_stream_ref(x, w_ref, b, relu=relu,
+                                        out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert got.shape == (2, 64, 77, cout) and got.dtype == out_dt
+    assert got.shape == (n, hp - 6, wp - 6, cout) and got.dtype == out_dt
     assert _rel(got, ref) < (1e-5 if out_dt == torch.float32 else 1e-2)
+
+
+def test_conv_stream_packed_weights(dev):
+    """Weights packed once by the caller (``pack_weights``, as the
+    generator keeps them) give the output of a call that packs for itself;
+    such a call reads the weights as they are (an in-place change shows);
+    packing refuses a shape the tensor-core route does not serve."""
+    x = torch.rand((1, 20, 40, 4), device=dev).to(torch.bfloat16)
+    w = torch.randn((7, 7, 4, 64), device=dev) * 0.05
+    first = conv_stream.conv2d_stream(x, w,
+                                      packed=conv_stream.pack_weights(w))
+    assert torch.equal(conv_stream.conv2d_stream(x, w), first)
+    w.mul_(2)
+    again = conv_stream.conv2d_stream(x, w)
+    torch.cuda.synchronize()
+    assert _rel(again, 2 * first.float()) < 1e-2
+    with pytest.raises(ValueError):
+        conv_stream.pack_weights(torch.zeros((3, 3, 3, 4), device=dev))
 
 
 def test_generator_kernels_match_plain_routes(dev, f32_references,

@@ -23,7 +23,6 @@ import jax
 from manga_image_translator_tpu import inpainting as jax_inpainting
 from manga_image_translator_tpu import manga_translator as jax_mt
 from manga_image_translator_tpu.config import Config as JConfig
-from manga_image_translator_tpu.config import Inpainter as JInpainter
 from manga_image_translator_tpu.inpainting import inpainting_lama as jax_il
 from manga_image_translator_tpu.models import dbnet as jax_dbnet
 from manga_image_translator_tpu.models import lama as jax_lama
@@ -86,6 +85,9 @@ def contexts():
         raise RuntimeError('offline test: no downloads')
     mp.setattr(jax_inference.ModelWrapper, '_download_file', offline)
     mp.setattr(jax_il.LamaLargeInpainter, '_N_BLOCKS', N_BLOCKS)
+    # a JAX inpainter of its own: another test in this process may have
+    # loaded the shared one with another block count
+    mp.setattr(jax_inpainting, '_inpainter_cache', {})
     for mt in (jax_mt, port_mt):
         mp.setattr(mt.MangaTranslator, '_run_mask_refinement', stroke_mask)
     jitted = (jax_ocr48.beam_decode, jax_ocr48.beam_decode_from_memory,
@@ -124,9 +126,8 @@ def contexts():
         mp.undo()
         for fn in jitted:
             fn._clear_cache()
-        # neither registry keeps a 2-block generator for later tests
+        # the port's registry keeps no 2-block generator for later tests
         inpainting._inpainter_cache.pop(Inpainter.lama_large, None)
-        jax_inpainting._inpainter_cache.pop(JInpainter.lama_large, None)
     return ref, port
 
 
