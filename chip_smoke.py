@@ -8,9 +8,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds every kernel of the port from ``manga_image_translator_tpu_torch/
    csrc`` with nvcc (sm_90a) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, within the stated tolerance (K1 bilateral, K2 decoder step, K3 char head, K4 FourierUnit, K5
-   streaming conv), and the whole 18-block LaMa generator on a 512² crop in
-   f32 against its plain routes;
+   shapes of the main path, within the stated tolerance (K1 bilateral, K2
+   decoder step at N=120 and 80 through a random ancestry table, K3 char
+   head, K4 FourierUnit, K5 streaming conv), and the whole 18-block LaMa
+   generator on a 512² crop in f32 against its plain routes;
 4. drives the port's main path — the ``local`` CLI mode (detect → 48px OCR →
    textline merge → translate ``original`` → mask refinement → inpaint
    ``lama_large`` → render ``default``) on two synthetic pages — with the
@@ -26,7 +27,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
    computes the least time the card could take (``bound_ms``); traces one
-   LaMa forward to split its device time between K4, K5 and cuDNN;
+   decoder step + char head (one kernel launch each; K2's phases by its own
+   SM-clock stamps), one whole beam-search step at step 128 (``beam_step``)
+   and one LaMa forward (its device time between K4, K5 and cuDNN); times
+   the OCR stage on one page;
 6. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 It exits non-zero on any failure, and when CUDA is unavailable.
@@ -34,10 +38,10 @@ Weights are random, made from fixed seeds (MIT_TPU_ALLOW_RANDOM_WEIGHTS=1).
 
 Two more modes compare two checkouts on one card:
 
-* ``--times-only``: builds the kernels, runs step 5's kernel timings and
-  times the inpainting stage on one page (``phase_inpaint_page``); no
-  checks, no main path, no traces. Its last line is a JSON object of
-  those numbers.
+* ``--times-only``: builds the kernels, runs step 5's kernel timings, the
+  beam step and the OCR and inpainting stages on one page
+  (``phase_beam_step``, ``phase_ocr_page``, ``phase_inpaint_page``); no
+  checks, no main path. Its last line is a JSON object of those numbers.
 * ``--compare-with DIR --pairs N``: DIR is the root of another checkout
   inside this one (for example the parent commit unpacked with ``git
   archive`` into ``build/parent``). Copies this script there and runs
@@ -53,6 +57,7 @@ import asyncio
 import collections
 import copy
 import functools
+import inspect
 import json
 import math
 import os
@@ -74,6 +79,7 @@ F32_OPS_PER_S = 67e12          # CUDA cores, f32
 BF16_OPS_PER_S = 989e12        # tensor cores, bf16 inputs
 F32X3_OPS_PER_S = 495e12 / 3   # f32-accurate products as three TF32 passes
 
+SLEEP_CYCLES = 40_000_000      # ~20 ms of SM clock at 1.98 GHz
 PAGE_W, PAGE_H = 1448, 2048    # one detection canvas tall
 LINES_PER_PAGE = 18            # > 16 lines: the 24-crop OCR chunk (N = 120)
 LAMA_BLOCKS = 18               # lama_large
@@ -97,9 +103,11 @@ def emit(obj) -> None:
 def cuda_ms(fn, iters: int = 25, warmup: int = 3, reps: int = 5) -> float:
     """Per-call device time of ``fn``: the median, over ``iters // reps``
     samples, of CUDA events around ``reps`` back-to-back calls over
-    ``reps``. Calls queue up behind each other, so a wrapper's host time
-    hides behind the device's work wherever it is shorter (one call between
-    two events would count it as device time)."""
+    ``reps``. Each sample starts behind a kernel that keeps the device busy
+    for ~20 ms (``torch.cuda._sleep``) while the host enqueues the calls, so
+    the host's time per call stays out of the number whenever enqueueing
+    ``reps`` calls takes less than that (without it, a kernel of a few tens
+    of µs reads as its wrapper's host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -108,6 +116,7 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3, reps: int = 5) -> float:
     for _ in range(max(1, iters // reps)):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         for _ in range(reps):
             fn()
@@ -285,46 +294,68 @@ def phase_check(results):
     require(err <= 1, f'bilateral: max abs err {err} gray > 1')
     results['bilateral']['max_abs_err'] = err
 
-    # K2: 20 steps at N=120, S=256, M=96 (a 384-px width bucket), bf16;
-    # a second run of the kernel on the same inputs must give the same bits
+    # K2 at the port's two chunk sizes (N=120: 24 crops, N=80: 16), S=256,
+    # M=96 (a 384-px width bucket), bf16, steps 0-19 and 120-129 (the
+    # second decode tier's depth); then N=120 at M=386 (the 1536-px
+    # bucket, the widest the port makes), steps 0, 1, 33, 128, 254 and 255;
+    # every step through a random non-identity ancestry table; a second run
+    # of the kernel on the same inputs must give the same bits
     model = ocr_model(7935)
     w, ch, embd = model.packed(torch.bfloat16)
-    n, s_len = 120, 256
-    mem_k, mem_v, mem_len, rot = k2_inputs(model, n, s_len)
-    shape = (5, s_len, n, 320)
-    sk = torch.zeros(shape, dtype=torch.bfloat16, device='cuda')
-    sv = torch.zeros_like(sk)
-    rk, rv = sk.clone(), sv.clone()
-    sk2, sv2 = sk.clone(), sv.clone()
-    g = torch.Generator(device='cuda').manual_seed(1)
-    worst = 0.0
-    worst_abs = 0.0
-    repeatable = True
-    for step in range(20):
-        tok = torch.randint(3, 7935, (n,), generator=g, device='cuda')
-        out, kn, vn, _ = dops.decode_step(step, embd[tok], w, rot, sk, sv,
-                                          mem_k, mem_v, mem_len)
-        out2, kn2, vn2, _ = dops.decode_step(step, embd[tok], w, rot, sk2,
-                                             sv2, mem_k, mem_v, mem_len)
-        rout, rkn, rvn = dops.decode_step_ref(step, embd[tok], w, rot, rk, rv,
-                                              mem_k, mem_v, mem_len)
-        torch.cuda.synchronize()
-        repeatable &= (torch.equal(out, out2) and torch.equal(kn, kn2)
-                       and torch.equal(vn, vn2))
-        for a, b in ((out, rout), (kn, rkn), (vn, rvn)):
-            d = float((a.float() - b.float()).abs().max())
-            scale = float(b.float().abs().max()) + 1e-6
-            worst = max(worst, d / scale)
-            worst_abs = max(worst_abs, d)
-    emit({'phase': 'check', 'kernel': 'decode_step', 'n': n, 's_len': s_len,
-          'm_len': int(mem_k.shape[1]), 'steps': 20,
-          'max_rel_err': worst, 'max_abs_err': worst_abs, 'tol_rel': 0.05,
-          'bitwise_repeatable': repeatable})
-    require(worst < 0.05, f'decode_step: rel err {worst} >= 0.05')
-    require(repeatable, 'decode_step: two runs on the same inputs differ')
-    results['decode_step']['max_abs_err'] = worst_abs
+    s_len = 256
+    worst_all = 0.0
+    worst_abs_all = 0.0
+    repeatable_all = True
+    deep = list(range(20)) + list(range(120, 130))
+    for n, m_len, steps in ((120, 96, deep), (80, 96, deep),
+                            (120, 386, [0, 1, 33, 128, 254, 255])):
+        worst = 0.0
+        worst_abs = 0.0
+        repeatable = True
+        mem_k, mem_v, mem_len, rot = k2_inputs(model, n, s_len, m_len)
+        shape = (5, s_len, n, 320)
+        g = torch.Generator(device='cuda').manual_seed(n)
+        sk = (torch.randn(shape, generator=g, device='cuda') * 0.5
+              ).to(torch.bfloat16)
+        sv = (torch.randn(shape, generator=g, device='cuda') * 0.5
+              ).to(torch.bfloat16)
+        rk, rv = sk.clone(), sv.clone()
+        sk2, sv2 = sk.clone(), sv.clone()
+        src = torch.randint(0, n, (s_len, n), generator=g, device='cuda',
+                            dtype=torch.int32)
+        for step in steps:
+            tok = torch.randint(3, 7935, (n,), generator=g, device='cuda')
+            out, kn, vn, _ = dops.decode_step(step, embd[tok], w, rot, sk,
+                                              sv, mem_k, mem_v, mem_len, src)
+            out2, kn2, vn2, _ = dops.decode_step(step, embd[tok], w, rot,
+                                                 sk2, sv2, mem_k, mem_v,
+                                                 mem_len, src)
+            rout, rkn, rvn = dops.decode_step_ref(step, embd[tok], w, rot,
+                                                  rk, rv, mem_k, mem_v,
+                                                  mem_len, src)
+            torch.cuda.synchronize()
+            repeatable &= (torch.equal(out, out2) and torch.equal(kn, kn2)
+                           and torch.equal(vn, vn2))
+            for a, b in ((out, rout), (kn, rkn), (vn, rvn)):
+                d = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max()) + 1e-6
+                worst = max(worst, d / scale)
+                worst_abs = max(worst_abs, d)
+        emit({'phase': 'check', 'kernel': 'decode_step', 'n': n,
+              's_len': s_len, 'm_len': int(mem_k.shape[1]),
+              'steps': len(steps),
+              'ancestry': 'random', 'max_rel_err': worst,
+              'max_abs_err': worst_abs, 'tol_rel': 0.05,
+              'bitwise_repeatable': repeatable})
+        worst_all = max(worst_all, worst)
+        worst_abs_all = max(worst_abs_all, worst_abs)
+        repeatable_all &= repeatable
+    require(worst_all < 0.05, f'decode_step: rel err {worst_all} >= 0.05')
+    require(repeatable_all, 'decode_step: two runs on the same inputs differ')
+    results['decode_step']['max_abs_err'] = worst_abs_all
 
     # K3 at N=120 for the released (7935) and placeholder (2322) alphabets
+    n = 120
     k3_err = 0.0
     for v in (7935, 2322):
         m = model if v == 7935 else ocr_model(v)
@@ -752,10 +783,12 @@ def phase_breakdown():
 # phase 5: times
 # ---------------------------------------------------------------------------
 
-def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len):
+def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len,
+                         src=None):
     """The decoder step as a composite of PyTorch library calls (cuBLAS
-    matmuls, layer_norm, scaled_dot_product_attention): a yardstick the port
-    never calls."""
+    matmuls, layer_norm, scaled_dot_product_attention; the history gathered
+    by the ancestry table ``src`` with one indexing op per cache and layer):
+    a yardstick the port never calls."""
     import torch.nn.functional as F
     from manga_image_translator_tpu_torch.ops.decode_step import (
         E, H, HD, L, _rotate_pairs)
@@ -765,6 +798,10 @@ def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len):
     r = rot[step].repeat(1, H)
     cross_mask = (torch.arange(m, device=tgt.device)[None, :]
                   < mem_len[:, None])[:, None, None, :]
+    if src is not None:
+        rows = src[:step + 1].long()
+        rows[step] = torch.arange(n, device=tgt.device)
+        pos_t = torch.arange(step + 1, device=tgt.device)[:, None]
     x = tgt
     for l in range(L):
         xn = F.layer_norm(x, (E,), w['ln_w'][l, 0].to(dt), w['ln_b'][l, 0].to(dt))
@@ -773,8 +810,12 @@ def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len):
         k = _rotate_pairs(qkv[:, E:2 * E], r[2].to(dt), r[3].to(dt))
         sk[l, step] = k
         sv[l, step] = qkv[:, 2 * E:]
-        kk = sk[l, :step + 1].view(step + 1, n, H, HD).permute(1, 2, 0, 3)
-        vv = sv[l, :step + 1].view(step + 1, n, H, HD).permute(1, 2, 0, 3)
+        if src is None:
+            kk, vv = sk[l, :step + 1], sv[l, :step + 1]
+        else:
+            kk, vv = sk[l][pos_t, rows], sv[l][pos_t, rows]
+        kk = kk.reshape(step + 1, n, H, HD).permute(1, 2, 0, 3)
+        vv = vv.reshape(step + 1, n, H, HD).permute(1, 2, 0, 3)
         a = F.scaled_dot_product_attention(q.view(n, H, 1, HD), kk, vv)
         x = x + torch.addmm(w['bo'][l].to(dt), a.reshape(n, E), w['wo'][l])
         xn = F.layer_norm(x, (E,), w['ln_w'][l, 1].to(dt), w['ln_b'][l, 1].to(dt))
@@ -828,24 +869,40 @@ def phase_times(results, forwards):
     sv = (torch.randn((5, s_len, n, 320), generator=g, device='cuda') * 0.5
           ).to(torch.bfloat16)
     tgt = embd[torch.randint(3, 7935, (n,), generator=g, device='cuda')]
+    # the beam's history through the ancestry table run_beam makes, where
+    # this checkout's kernel takes one (a checkout from before it reads the
+    # cache in row order and moves it in the beam loop instead)
+    kw = ({'src': beam_ancestry(step, s_len)} if 'src' in inspect.signature(
+        dops.decode_step).parameters else {})
     r = results['decode_step']
     r['ms'] = cuda_ms(lambda: dops.decode_step(step, tgt, w, rot, sk, sv,
-                                               mem_k, mem_v, mem_len))
+                                               mem_k, mem_v, mem_len, **kw))
     r['plain_ms'] = cuda_ms(lambda: dops.decode_step_ref(
-        step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len), iters=10)
+        step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len, **kw), iters=10)
     r['library_ms'] = cuda_ms(lambda: _library_decode_step(
-        step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len))
+        step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len, kw.get('src')))
     n_weights = sum(w[k].numel() for k in ('wqkv', 'wo', 'wcq', 'wco', 'w1',
                                            'w2'))
     weight_bytes = sum(w[k].numel() * w[k].element_size() for k in w)
-    t = step + 1
-    kv_bytes = 5 * 2 * (t * n * 320 + m_len * n * 320) * 2
+    # the cache rows this step needs: each distinct (position, row) of the
+    # history once (beams of a crop share their old positions' rows), the
+    # step's new rows written, each row's memory positions up to its length
+    hist_rows = step * n
+    if kw:
+        t_col = torch.arange(step, device='cuda')[:, None] * n
+        hist_rows = int(torch.unique(t_col + kw['src'][:step].long()).numel())
+    mem_rows = int(mem_len.clamp(0, m_len).sum())
+    kv_bytes = 5 * 2 * (hist_rows + n + mem_rows) * 320 * 2
     io_bytes = 2 * n * 320 * 2 + 2 * 5 * n * 320 * 2 + n * 4
-    attn_ops = 5 * n * 4 * 80 * 2 * 2 * (t + m_len)
+    if kw:    # the ancestry table's rows for positions 0..step-1
+        io_bytes += step * n * 4
+    attn_ops = 5 * 4 * 80 * 2 * 2 * (n * (step + 1) + mem_rows)
     r['bound_ms'], r['bound_by'] = bound_ms(
         weight_bytes + kv_bytes + io_bytes, 2 * n * n_weights + attn_ops,
         BF16_OPS_PER_S)
-    r['shape'] = {'n': n, 's_len': s_len, 'step': step, 'm_len': m_len}
+    r['shape'] = {'n': n, 's_len': s_len, 'step': step, 'm_len': m_len,
+                  'ancestry': 'run_beam' if kw else None,
+                  'history_rows': hist_rows, 'memory_rows': mem_rows}
 
     # K3: N=120, released alphabet size
     dec = (torch.randn((n, 320), generator=g, device='cuda')
@@ -1028,33 +1085,41 @@ def phase_lama_trace(forwards):
 
 
 K4_STAGES = ['w', 'h', 'spectral_conv', 'inverse_h', 'inverse_w']
-STEP_ROLES = ['qkv_ln', 'self_attention', 'out_proj', 'cross_q_ln',
-              'cross_attention', 'cross_out_proj', 'ff1_ln', 'ff2_split_k',
-              'ff2_epilogue']
-HEAD_ROLES = ['pred1_gelu', 'vocab_partials', 'merge_topk']
+# the kernels of one decoder step + char head, by name (one launch each)
+STEP_KERNELS = {'decode_step': 'decode_step_persistent',
+                'charhead': 'char_topk_persistent'}
 
 
-def phase_trace():
-    """One decoder step + char head under torch.profiler: device µs of
-    each kernel launch, averaged over the 5 layers per role, and the share
-    of the step's span the device was busy."""
-    from torch.profiler import ProfilerActivity, profile
-    from manga_image_translator_tpu_torch.ops import charhead
-    from manga_image_translator_tpu_torch.ops import decode_step as dops
-    model = ocr_model(7935)
-    w, ch, embd = model.packed(torch.bfloat16)
-    n, s_len, step = 120, 256, 128
+def k2_state(model, n=120, s_len=256, step=128, seed=3):
+    """K2's inputs at the main path's shape: random caches and the
+    ancestry table run_beam makes (``beam_ancestry``)."""
     mem_k, mem_v, mem_len, rot = k2_inputs(model, n, s_len)
-    g = torch.Generator(device='cuda').manual_seed(3)
+    g = torch.Generator(device='cuda').manual_seed(seed)
     sk = torch.randn((5, s_len, n, 320), generator=g, device='cuda'
                      ).to(torch.bfloat16)
     sv = torch.randn((5, s_len, n, 320), generator=g, device='cuda'
                      ).to(torch.bfloat16)
+    _, _, embd = model.packed(torch.bfloat16)
     tgt = embd[torch.randint(3, 7935, (n,), generator=g, device='cuda')]
+    return (step, tgt, model.packed(torch.bfloat16)[0], rot, sk, sv, mem_k,
+            mem_v, mem_len, beam_ancestry(step, s_len))
+
+
+def phase_trace():
+    """One decoder step + char head at N=120, step 128 under
+    torch.profiler: each kernel's launches per call (1 each) and device µs,
+    busy and span; then K2's phases by block 0's SM clock (summed over the
+    5 layers, in µs of the step's measured device time), split into work
+    and the wait at the grid barrier that ends the phase."""
+    from torch.profiler import ProfilerActivity, profile
+    from manga_image_translator_tpu_torch.ops import charhead
+    from manga_image_translator_tpu_torch.ops import decode_step as dops
+    model = ocr_model(7935)
+    args = k2_state(model)
+    _, ch, _ = model.packed(torch.bfloat16)
 
     def run():
-        out, *_ = dops.decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v,
-                                   mem_len)
+        out, *_ = dops.decode_step(*args)
         charhead.char_topk(out, ch, 5)
 
     for _ in range(3):
@@ -1068,25 +1133,161 @@ def phase_trace():
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)['traceEvents']
-    names = ('gemm_fused', 'gemm_split_epilogue', 'attention', 'pred1_gelu',
-             'vocab_partials', 'merge_topk')
     ks = sorted((e for e in events if e.get('cat') == 'kernel'
-                 and any(k in e.get('name', '') for k in names)),
+                 and any(k in e.get('name', '')
+                         for k in STEP_KERNELS.values())),
                 key=lambda e: e['ts'])
-    per_layer = len(STEP_ROLES)
-    n_launch = 5 * per_layer + len(HEAD_ROLES)
-    require(len(ks) == n_launch,
-            f'trace holds {len(ks)} kernels, expected {n_launch}')
-    us = {}
-    for i, e in enumerate(ks):
-        role = (STEP_ROLES[i % per_layer] if i < 5 * per_layer
-                else HEAD_ROLES[i - 5 * per_layer])
-        us.setdefault(role, []).append(e['dur'])
+    per_call = {name: sum(kn in e['name'] for e in ks)
+                for name, kn in STEP_KERNELS.items()}
+    for name, count in per_call.items():
+        require(count == 1, f'{name}: {count} kernel launches in one call, '
+                'expected 1')
+    us = {name: sum(e['dur'] for e in ks if kn in e['name'])
+          for name, kn in STEP_KERNELS.items()}
     busy = sum(e['dur'] for e in ks)
     span = ks[-1]['ts'] + ks[-1]['dur'] - ks[0]['ts']
-    emit({'phase': 'trace', 'n': n, 'step': step, 'm_len': int(mem_k.shape[1]),
-          'us_per_launch': {k: sum(v) / len(v) for k, v in us.items()},
-          'busy_us': busy, 'span_us': span})
+
+    # K2's phases: block 0's clock, scaled to the kernel's device time
+    clk = dops.phase_clocks(*args).cpu()
+    torch.cuda.synchronize()
+    total = int(clk[-1, 1] - clk[0, 0])
+    scale = us['decode_step'] / total
+    work = collections.defaultdict(float)
+    wait = collections.defaultdict(float)
+    for i in range(clk.shape[0]):
+        ph = dops.PHASES[i % len(dops.PHASES)]
+        work[ph] += int(clk[i, 1] - clk[i, 0]) * scale
+        if i + 1 < clk.shape[0]:
+            wait[ph] += int(clk[i + 1, 0] - clk[i, 1]) * scale
+    emit({'phase': 'trace', 'n': 120, 'step': args[0],
+          'm_len': int(args[6].shape[1]), 'kernel_launches_per_call': per_call,
+          'us_per_call': us, 'busy_us': busy, 'span_us': span,
+          'k2_phase_work_us': dict(work), 'k2_barrier_wait_us': dict(wait),
+          'k2_barriers': clk.shape[0] - 1})
+    return per_call
+
+
+def beam_inputs():
+    """The beam search at N=120 (24 crops x 5 beams), M=96: the seeded
+    model with the END token's bias at -1e4 (no beam ends, so every run
+    takes its max_len steps), a random memory and ragged lengths."""
+    from manga_image_translator_tpu_torch.models import ocr48
+    model = ocr_model(7935)
+    with torch.no_grad():
+        model.pred.bias[ocr48.END_TOK] = -1e4
+    g = torch.Generator(device='cuda').manual_seed(11)
+    memory = torch.randn((24, 96, 320), generator=g, device='cuda') * 0.5
+    lens = torch.randint(48, 97, (24,), generator=g, device='cuda')
+    mask = torch.arange(96, device='cuda')[None, :] >= lens[:, None]
+    return model, memory, mask
+
+
+def beam_ancestry(step=128, s_len=256):
+    """The (s_len, 120) ancestry table that ``ocr48.run_beam`` hands K2 at
+    ``step`` on ``beam_inputs``, identity from ``step`` on: parents stay
+    within a crop's 5 beams, so old positions share few rows."""
+    from manga_image_translator_tpu_torch.models import ocr48
+    model, memory, mask = beam_inputs()
+    step_fn = ocr48.decode_ops.decode_step
+    seen = {}
+
+    def record(*args):
+        if args[0] == step:          # run_beam passes src last
+            seen['src'] = args[-1][:step].clone()
+        return step_fn(*args)
+    ocr48.decode_ops.decode_step = record
+    try:
+        ocr48.run_beam(model, memory, mask, 5, step + 1, 2)
+    finally:
+        ocr48.decode_ops.decode_step = step_fn
+    src = torch.arange(120, dtype=torch.int32, device='cuda').expand(
+        s_len, 120).contiguous()
+    src[:step] = seen['src']
+    return src
+
+
+def phase_beam_step(step=128, lo=96, hi=160, repeats=3):
+    """One whole step of the beam search (``ocr48.run_beam``) on
+    ``beam_inputs``: K2, K3, the beam bookkeeping and the update of the
+    ancestry table (a checkout from before the table: its two
+    ``index_select`` reorders of the caches).
+
+    ``ms_per_step``: host clock around runs of ``hi`` and ``lo`` steps
+    (device-synchronised), the difference over ``hi - lo`` steps (the
+    steps around ``step``), median of ``repeats``. ``busy_us``/``span_us``:
+    a traced run of ``step + 2`` steps, from the start of the char-head
+    kernel of step ``step`` to that of the next step: the device time of
+    every kernel in between, and the window's length."""
+    from torch.profiler import ProfilerActivity, profile
+    from manga_image_translator_tpu_torch.models import ocr48
+    model, memory, mask = beam_inputs()
+
+    def run(max_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ocr48.run_beam(model, memory, mask, 5, max_len, 2)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run(lo)
+    run(hi)
+    per_step = statistics.median((run(hi) - run(lo)) / (hi - lo)
+                                 for _ in range(repeats))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(step + 2)
+    path = os.path.join(OUT, 'beam_step_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ks = sorted((e for e in json.load(f)['traceEvents']
+                     if e.get('cat') == 'kernel'), key=lambda e: e['ts'])
+    # the first kernel of each char-head call: this tree's one launch, or
+    # the first of an older tree's three
+    heads = [e['ts'] for e in ks
+             if 'char_topk' in e['name'] or 'pred1_gelu' in e['name']]
+    require(len(heads) == step + 2, f'{len(heads)} char-head calls in a '
+            f'run of {step + 2} steps')
+    t0, t1 = heads[step], heads[step + 1]
+    window = [e for e in ks if t0 <= e['ts'] < t1]
+    r = {'phase': 'beam_step', 'n': 120, 'm_len': 96, 'step': step,
+         'ms_per_step': per_step, 'steps_timed': [lo, hi],
+         'busy_us': sum(e['dur'] for e in window), 'span_us': t1 - t0,
+         'kernels': len(window)}
+    emit(r)
+    return r
+
+
+def phase_ocr_page(repeats=5):
+    """Wall ms of the OCR stage (``ocr.dispatch``: crops, memory, the
+    two-tier beam decode, colours) on the second synthetic page's 18 known
+    text lines, seeded random weights, device-synchronised: one warm-up
+    call (it builds the model), then ``repeats`` timed."""
+    import cv2
+    import numpy as np
+    from manga_image_translator_tpu_torch import ocr
+    from manga_image_translator_tpu_torch.config import Ocr, OcrConfig
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    page_dir = os.path.join(WORK, 'pages')
+    boxes = make_pages(page_dir)
+    img = cv2.cvtColor(cv2.imread(os.path.join(page_dir, 'page1.png')),
+                       cv2.COLOR_BGR2RGB)
+    cfg = OcrConfig(prob=0.0)
+
+    def run():
+        quads = [Quadrilateral(np.array(q), '', 1.0)
+                 for q in boxes['page1.png']]
+        out = asyncio.run(ocr.dispatch(Ocr.ocr48px, img, quads, cfg, 'cuda'))
+        torch.cuda.synchronize()
+        return out
+    lines = len(run())
+    ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(ms)
+    emit({'phase': 'ocr_page', 'page': 'page1.png', 'lines': lines, 'ms': ms,
+          'median_ms': median})
+    return median
 
 
 def phase_inpaint_page(repeats=5):
@@ -1157,7 +1358,13 @@ def times_only() -> int:
     phase_build()
     results = {name: {} for name in META}
     phase_times(results, [SMOKE_FORWARD])
-    numbers = {'inpaint_page1_ms': phase_inpaint_page()}
+    beam = phase_beam_step()
+    numbers = {'inpaint_page1_ms': phase_inpaint_page(),
+               'ocr_page1_ms': phase_ocr_page(),
+               'beam_step.ms': beam['ms_per_step'],
+               'beam_step.busy_us': beam['busy_us'],
+               'beam_step.span_us': beam['span_us'],
+               'beam_step.kernels': beam['kernels']}
     for name, r in results.items():
         for key in ('ms', 'library_ms', 'host_us_per_call'):
             if r.get(key) is not None:
@@ -1212,8 +1419,9 @@ def compare(other: str, pairs: int) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-only', action='store_true',
-                    help='build, time the kernels and a page inpaint, '
-                         'print the numbers last; nothing else')
+                    help='build, time the kernels, the beam step and a '
+                         'page\'s OCR and inpaint, print the numbers last; '
+                         'nothing else')
     ap.add_argument('--compare-with', metavar='DIR',
                     help='another checkout\'s root: alternate --times-only '
                          'runs there and here')
@@ -1245,7 +1453,9 @@ def main(argv=None) -> int:
     phase_cli(page_dir, cfg_path)
     phase_breakdown()
     phase_times(results, forwards)
-    phase_trace()
+    per_call = phase_trace()
+    phase_beam_step()
+    phase_ocr_page()
     phase_lama_trace(forwards)
     kernels = []
     for name, (route, source, replaces) in META.items():
@@ -1257,6 +1467,8 @@ def main(argv=None) -> int:
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
             'shape': r['shape'],
+            **({'kernel_launches_per_call': per_call[name]}
+               if name in per_call else {}),
             **{k: v for k, v in r.items() if k.startswith('at_')}})
     emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
           'build_seconds': build_seconds})

@@ -83,6 +83,50 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// the same four 8x8 b16 matrices, transposed: from a [k][n] row-major
+// panel, lanes 0-15 addressing rows k0..k0+15 at column n0 and lanes 16-31
+// the same rows at n0 + 8, r[0..1] is the 16x8 B fragment of columns
+// n0..n0+7 and r[2..3] that of n0+8..n0+15
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two transposed matrices (lanes 0-15 address rows k0..k0+15): one B
+// fragment
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// Grid-wide barrier of a persistent kernel whose blocks are all resident
+// (a cooperative launch guarantees it), in one atomic per block: block 0
+// adds 0x80000000 - (blocks - 1) to the counter *bar, every other block 1,
+// so the counter's top bit flips once all have arrived and its low bits
+// come back to where they were (the buffer, zeroed once, serves every
+// barrier and every launch). Thread 0 fences the block's writes (ordered
+// after the others' by the block barrier) and polls; data written by other
+// blocks before the barrier must then be read past L1 (cp.async.cg,
+// ld.global.cg), which is not coherent across SMs.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    volatile unsigned* vbar = bar;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    while (((old ^ *vbar) & 0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          const uint32_t* b) {

@@ -13,8 +13,9 @@ cross-attention K/V computed once per sequence, a fixed-shape beam search
 with per-sample latching and deferred colour rows. It runs as a Python loop
 of eager steps; each step is one launch of the fused decoder-step kernel
 (``ops.decode_step``, K2) and one of the fused char-head top-k kernel
-(``ops.charhead``, K3). Decode runs in bf16 on the card (the kernels'
-contract) and in f32 on the CPU.
+(``ops.charhead``, K3); each beam row reads its history through an ancestry
+table, so no step moves the K/V cache. Decode runs in bf16 on the card (the
+kernels' contract) and in f32 on the CPU.
 """
 from __future__ import annotations
 
@@ -423,8 +424,10 @@ def run_beam(model: OCR48, memory: torch.Tensor, memory_mask: torch.Tensor,
     """Fixed-shape beam search with per-sample latching (semantics of
     reference infer_beam_batch_tensor :678-801, as the JAX package's
     ``run_beam``): one decoder-step launch and one char-head launch per
-    step, the self-K/V cache reordered by beam parent over the written
-    positions, colour rows recovered after the loop from ``row_src``."""
+    step. The self-K/V cache never moves: each beam row reads its history
+    through the ancestry table ``src`` (``ops.decode_step``), which follows
+    the beam parents; colour rows are recovered after the loop from
+    ``row_src``."""
     dev = memory.device
     dt = dtype or decode_dtype(dev)
     n = memory.shape[0]
@@ -439,10 +442,13 @@ def run_beam(model: OCR48, memory: torch.Tensor, memory_mask: torch.Tensor,
     rot = rot_table(max_len, dev)
     ar_nk = torch.arange(nk, device=dev)
     ar_n = torch.arange(n, device=dev)
+    # src[t, r]: the cache row holding position t of beam row r's history
+    src = ar_nk.to(torch.int32).expand(max_len, nk).contiguous()
 
     def step_fn(step, tok):
         out, _, _, _ = decode_ops.decode_step(step, embd[tok], w, rot, self_k,
-                                              self_v, mem_k, mem_v, mem_len)
+                                              self_v, mem_k, mem_v, mem_len,
+                                              src)
         outc[:, step] = out
         return out
 
@@ -493,11 +499,9 @@ def run_beam(model: OCR48, memory: torch.Tensor, memory_mask: torch.Tensor,
         tok = top_i.view(n, k, k)[ar_n[:, None], parent,
                                   new_tok_idx].view(-1)
         out_idx[:, step + 1] = tok
-        # beam-parent reorder of the written cache positions 0..step
-        self_k[:, :step + 1] = self_k[:, :step + 1].index_select(
-            2, parent_flat)
-        self_v[:, :step + 1] = self_v[:, :step + 1].index_select(
-            2, parent_flat)
+        # each new row inherits its parent's history, position step
+        # included (src[step] is still the identity there)
+        src[:step + 1] = src[:step + 1, parent_flat]
         row_src[:, step] = ar_nk
         row_src = row_src[parent_flat]
         log_probs = sel_v.reshape(-1)

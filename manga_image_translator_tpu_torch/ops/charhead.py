@@ -14,7 +14,8 @@ erf GELU. Top-k order: larger value first, ties to the lower index.
   padding), biases f32.
 * ``char_topk_ref`` is the plain PyTorch version; ``char_topk`` the
   wrapper: CPU tensors take the plain version, CUDA tensors launch
-  ``csrc/charhead.cu`` (bf16 only) or raise.
+  ``csrc/charhead.cu`` (bf16 only; one cooperative launch per call) or
+  raise.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from . import cuda_build
 
 KERNEL = 'charhead'
 E = 320
-CV = 128          # vocab columns per kernel block (csrc/charhead.cu)
+CV = 64           # vocab rows per kernel chunk (csrc/charhead.cu)
 TOPC = 5          # per-chunk candidates: the largest k the kernel serves
+NMAX = 160        # rows one launch serves (24 crops x 5 beams = 120)
 
 
 def prepare_charhead(pred1_weight: torch.Tensor, pred1_bias: torch.Tensor,
@@ -96,7 +98,8 @@ def _launch(dec: torch.Tensor, w: Dict[str, torch.Tensor], k: int
     p = cuda_build.ptr
     status = cuda_build.entry(KERNEL)(
         p(dec), *weight_ptrs, n, v, k, p(h), p(pmax), p(psum), p(pval),
-        p(pidx), p(out_val), p(out_idx), cuda_build.current_stream(dev))
+        p(pidx), p(out_val), p(out_idx),
+        p(cuda_build.sync_buffer(KERNEL, dev)), cuda_build.current_stream(dev))
     cuda_build.check(status, 'char-head top-k kernel')
     cuda_build.LAUNCHES[KERNEL] += 1
     return out_val, out_idx
@@ -113,6 +116,8 @@ def char_topk(dec: torch.Tensor, w: Dict[str, torch.Tensor], k: int
     if dec.dim() != 2 or dec.shape[1] != E:
         raise ValueError(f'char_topk: expected (N, {E}), got '
                          f'{tuple(dec.shape)}')
+    if not 1 <= dec.shape[0] <= NMAX:
+        raise ValueError(f'char_topk: {dec.shape[0]} rows outside 1..{NMAX}')
     if not 1 <= k <= TOPC:
         raise ValueError(f'char_topk: k={k} outside 1..{TOPC}')
     if dec.dtype != torch.bfloat16:

@@ -46,8 +46,8 @@ SOURCES = {
 ENTRY_POINTS = {
     'bilateral': ('bilateral', 'mit_bilateral_u8',
                   [_P, _P, _I, _I, _I, _I, _F, _F, _P]),
-    'decode_step': ('decode_step', 'mit_decode_step', [_I] * 4 + [_P] * 28),
-    'charhead': ('charhead', 'mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 8),
+    'decode_step': ('decode_step', 'mit_decode_step', [_I] * 4 + [_P] * 31),
+    'charhead': ('charhead', 'mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 9),
     'fourier_unit': ('fourier_unit', 'mit_fourier_unit',
                      [_P] * 10 + [_I] * 5 + [_P]),
     'conv_stream': ('conv_stream', 'mit_conv_stream',
@@ -159,6 +159,26 @@ def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if status != 0:
         raise RuntimeError(f'{what}: CUDA error {status} at launch')
+
+
+_sync_buffers: Dict[tuple, object] = {}
+
+
+def sync_buffer(name: str, device):
+    """An int32 buffer of 64 words, zeroed once, for the grid barrier
+    (and counters) of kernel ``name``'s persistent launches on ``device``,
+    allocated once per (kernel, device). It needs no reset: a launch
+    leaves its counters zero and the barrier word's low 31 bits as it found
+    them (``grid_sync`` waits for a flip of the top bit, which an odd
+    number of barriers in a launch leaves flipped). Launches that share it
+    run on one stream."""
+    import torch
+    key = (name, str(device))
+    buf = _sync_buffers.get(key)
+    if buf is None:
+        buf = torch.zeros(64, dtype=torch.int32, device=device)
+        _sync_buffers[key] = buf
+    return buf
 
 
 def current_stream(device) -> ctypes.c_void_p:

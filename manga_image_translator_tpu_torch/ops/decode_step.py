@@ -14,7 +14,13 @@ The port's own layout (no TPU lane padding):
   cross-attention mask as per-row lengths ``mem_len (N,)`` int32 (the
   memory mask is a prefix mask);
 * ``rot (S, 6, HD)`` f32 XPOS rows per step: self-q sin/cos, self-k sin/cos,
-  cross-q sin/cos (``models.ocr48.xpos_step_tables``).
+  cross-q sin/cos (``models.ocr48.xpos_step_tables``);
+* the beam's history as an ancestry table ``src (S, N)`` int32:
+  ``src[t, n]`` is the cache row that holds position t of row n's history,
+  for t < step; position ``step`` is row n itself. ``None`` is the identity.
+  A beam search updates the table after each selection instead of moving
+  the caches (the JAX kernel permutes them in place: ``fused_gather``); the
+  attention sees the same values in the same order either way.
 
 Precision contract of the kernel and of ``decode_step_ref``: storage in the
 dtype of the caches (bf16 on the card; the plain version also runs in f32),
@@ -23,12 +29,13 @@ storage dtype at the LN outputs, q/k/v, the attention outputs, the FF
 hidden layer and after each residual add.
 
 ``decode_step`` is the wrapper: CPU tensors take the plain version, CUDA
-tensors launch ``csrc/decode_step.cu`` (bf16) or raise.
+tensors launch ``csrc/decode_step.cu`` (bf16; one cooperative launch per
+call) or raise.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,13 +118,28 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum('nht,tnhd->nhd', w, vh).reshape(n, E).to(q.dtype)
 
 
+def _history_rows(step: int, n: int, src: Optional[torch.Tensor], device
+                 ) -> Optional[torch.Tensor]:
+    """(step + 1, N) long: the cache row of each position 0..step of each
+    beam row's history (``src`` for t < step, row n at ``step``); ``None``
+    for the identity."""
+    if src is None:
+        return None
+    rows = torch.empty((step + 1, n), dtype=torch.long, device=device)
+    rows[:step] = src[:step].to(device)
+    rows[step] = torch.arange(n, device=device)
+    return rows
+
+
 def decode_step_ref(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
                     rot: torch.Tensor, self_k: torch.Tensor,
                     self_v: torch.Tensor, mem_k: torch.Tensor,
-                    mem_v: torch.Tensor, mem_len: torch.Tensor
+                    mem_v: torch.Tensor, mem_len: torch.Tensor,
+                    src: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version; updates self_k/self_v at ``step`` in place and returns
-    (out (N, E), k_new (L, N, E), v_new (L, N, E))."""
+    (out (N, E), k_new (L, N, E), v_new (L, N, E)). Self-attention reads
+    each position's row through ``src`` (see the module note)."""
     dt = self_k.dtype
     n = tgt.shape[0]
     m = mem_k.shape[1]
@@ -130,6 +152,8 @@ def decode_step_ref(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
     cross_valid = pos[None, :] < mem_len.to(tgt.device).long()[:, None]
     self_valid = torch.ones((n, step + 1), dtype=torch.bool,
                             device=tgt.device)
+    rows = _history_rows(step, n, src, tgt.device)
+    pos_t = torch.arange(step + 1, device=tgt.device)[:, None]
     x = tgt.to(dt)
     k_new = torch.empty((L, n, E), dtype=dt, device=tgt.device)
     v_new = torch.empty_like(k_new)
@@ -143,8 +167,11 @@ def decode_step_ref(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
         self_v[l, step] = v
         k_new[l] = k
         v_new[l] = v
-        attn = _attend(q, self_k[l, :step + 1], self_v[l, :step + 1],
-                       self_valid)
+        if rows is None:
+            keys, values = self_k[l, :step + 1], self_v[l, :step + 1]
+        else:
+            keys, values = self_k[l][pos_t, rows], self_v[l][pos_t, rows]
+        attn = _attend(q, keys, values, self_valid)
         x = (x.float() + attn.float() @ w['wo'][l].float()
              + w['bo'][l]).to(dt)
         xn = _ln(x, w['ln_w'][l, 1], w['ln_b'][l, 1])
@@ -187,7 +214,8 @@ WEIGHT_LAYOUT = {
     'w1': ((L, E, FF), _BF), 'b1': ((L, FF), _F32),
     'w2': ((L, FF, E), _BF), 'b2': ((L, E), _F32),
 }
-FF2_SPLITS = 4    # FF2's split over K in csrc/decode_step.cu
+FF2_SPLITS = 8    # FF2's split over K in csrc/decode_step.cu
+NMAX = 160        # beam rows one launch serves (24 crops x 5 beams = 120)
 
 
 def _check_weights(w: Dict[str, torch.Tensor], device) -> None:
@@ -199,7 +227,8 @@ def _check_weights(w: Dict[str, torch.Tensor], device) -> None:
 _weights = cuda_build.CheckedWeights(WEIGHT_KEYS, _check_weights)
 
 
-def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len):
+def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len, src,
+            stamps=None):
     n = tgt.shape[0]
     dev = tgt.device
     s_len = self_k.shape[1] if isinstance(self_k, torch.Tensor) else 0
@@ -211,6 +240,11 @@ def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len):
     _check('mem_v', mem_v, _BF, (L, m_len, n, E), dev)
     _check('mem_len', mem_len, torch.int32, (n,), dev)
     _check('rot', rot, _F32, (s_len, 6, HD), dev)
+    if not 1 <= n <= NMAX or m_len < 1:
+        raise ValueError(f'decode_step: N={n} outside 1..{NMAX} or an empty '
+                         f'memory (M={m_len})')
+    if src is not None:
+        _check('src', src, torch.int32, (s_len, n), dev)
     if not 0 <= step < s_len:
         raise ValueError(f'decode_step: step {step} outside 0..{s_len - 1}')
     weight_ptrs = _weights.pointers(w, dev)
@@ -228,27 +262,49 @@ def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len):
         ctypes.c_void_p(rot.data_ptr() + step * rot.stride(0)
                         * rot.element_size()),
         p(self_k), p(self_v), p(mem_k), p(mem_v), p(mem_len),
-        p(k_new), p(v_new), p(q_buf), p(attn_buf), p(h_buf),
-        p(partial), cuda_build.current_stream(dev))
+        None if src is None else p(src), p(k_new), p(v_new), p(q_buf),
+        p(attn_buf), p(h_buf), p(partial),
+        p(cuda_build.sync_buffer(KERNEL, dev)),
+        None if stamps is None else p(stamps), cuda_build.current_stream(dev))
     cuda_build.check(status, 'decode-step kernel')
     cuda_build.LAUNCHES[KERNEL] += 1
     return out, k_new, v_new
 
 
+# the kernel's phases, in the order it runs them in each layer
+PHASES = ('qkv', 'self_attention', 'out_proj', 'cross_q', 'cross_attention',
+          'cross_out_proj', 'ff1', 'ff2')
+
+
+def phase_clocks(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len,
+                 src=None) -> torch.Tensor:
+    """Launch the kernel once (CUDA tensors only) with its phase stamps
+    on: (L * 8, 2) int64 SM clocks of block 0 at the start and the end of
+    each phase (layer-major, ``PHASES`` order). A phase's start minus the
+    previous phase's end is block 0's wait at the grid barrier."""
+    stamps = torch.zeros(2 * L * len(PHASES), dtype=torch.int64,
+                         device=tgt.device)
+    _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len, src,
+            stamps)
+    return stamps.view(L * len(PHASES), 2)
+
+
 def decode_step(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
                 rot: torch.Tensor, self_k: torch.Tensor, self_v: torch.Tensor,
                 mem_k: torch.Tensor, mem_v: torch.Tensor,
-                mem_len: torch.Tensor):
-    """One decoder step for (N,) beam rows at position ``step``.
+                mem_len: torch.Tensor, src: Optional[torch.Tensor] = None):
+    """One decoder step for (N,) beam rows at position ``step``, the
+    history read through the ancestry table ``src`` (None: identity).
 
     Returns ``(out (N, E), k_new (L, N, E), v_new (L, N, E), (self_k,
     self_v))``; the caches are updated in place at ``step``."""
     if tgt.device.type == 'cpu':
         out, k_new, v_new = decode_step_ref(step, tgt, w, rot, self_k,
-                                            self_v, mem_k, mem_v, mem_len)
+                                            self_v, mem_k, mem_v, mem_len,
+                                            src)
     elif tgt.device.type == 'cuda':
         out, k_new, v_new = _launch(step, tgt, w, rot, self_k, self_v,
-                                    mem_k, mem_v, mem_len)
+                                    mem_k, mem_v, mem_len, src)
     else:
         raise ValueError(f'decode_step: unsupported device {tgt.device}')
     return out, k_new, v_new, (self_k, self_v)

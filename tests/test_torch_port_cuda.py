@@ -1,7 +1,9 @@
 """PyTorch port, on the card only: each CUDA kernel (K1 bilateral, K2
 decoder step, K3 char-head top-k, K4 FourierUnit, K5 streaming conv)
 against its plain PyTorch version on the same CUDA inputs, at small,
-ragged and full-width shapes, and the wrappers' refusals.
+ragged and full-width shapes, the wrappers' refusals, K2 and K3's one
+launch per call, and the beam search's ancestry table against a physical
+reorder of the cache.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -115,6 +117,143 @@ def test_decode_step_kernel_is_repeatable(dev, model):
     for out, sk, sv in runs[1:]:
         assert torch.equal(out, runs[0][0])
         assert torch.equal(sk, runs[0][1]) and torch.equal(sv, runs[0][2])
+
+
+@pytest.fixture(scope='module')
+def full_models(dev):
+    """OCR models at the released (7935) and the placeholder (2322)
+    alphabet sizes."""
+    return {v: ocr48.build_ocr48(v, dev, ocr48.init_state_dict(v))
+            for v in (7935, 2322)}
+
+
+@pytest.mark.parametrize('m_len', [96, 194, 386])
+@pytest.mark.parametrize('n', [37, 80, 120])
+def test_decode_step_kernel_ancestry_matches_plain(dev, full_models, n,
+                                                   m_len):
+    """A random non-identity ancestry table ``src`` at the port's chunk
+    sizes (80, 120) and a ragged N, S=256, memory lengths of the 384-,
+    768- and 1536-px width buckets (M 96, 194, 386; each row's length
+    ragged between M/2 and M), steps 0, 1, 33, 128 and 255: 5% of the
+    output scale against the plain version on the same table."""
+    model = full_models[7935]
+    s_len = 256
+    w, _, embd = model.packed(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(n)
+    memory = torch.randn((n, m_len, 320), generator=g, device=dev) * 0.5
+    lens = torch.randint(m_len // 2, m_len + 1, (n,), generator=g, device=dev)
+    mask = torch.arange(m_len, device=dev)[None, :] >= lens[:, None]
+    mem_k, mem_v, mem_len = ocr48.init_memory_kv(model, memory, mask, 1,
+                                                 torch.bfloat16)
+    rot = ocr48.rot_table(s_len, dev)
+    sk = (torch.randn((5, s_len, n, 320), generator=g, device=dev) * 0.5
+          ).to(torch.bfloat16)
+    sv = (torch.randn((5, s_len, n, 320), generator=g, device=dev) * 0.5
+          ).to(torch.bfloat16)
+    src = torch.randint(0, n, (s_len, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    for step in (0, 1, 33, 128, 255):
+        tgt = embd[torch.randint(3, 7935, (n,), generator=g, device=dev)]
+        rk, rv = sk.clone(), sv.clone()
+        out, kn, vn, _ = dops.decode_step(step, tgt, w, rot, sk, sv, mem_k,
+                                          mem_v, mem_len, src)
+        rout, rkn, rvn = dops.decode_step_ref(step, tgt, w, rot, rk, rv,
+                                              mem_k, mem_v, mem_len, src)
+        for a, b in ((out, rout), (kn, rkn), (vn, rvn)):
+            assert _rel(a, b) < 0.05, f'step {step}: rel err {_rel(a, b)}'
+
+
+def _physical_reorder(decode_step):
+    """``decode_step`` as a beam search without an ancestry table would run
+    it: the history gathered into row order before the step (identity
+    ``src``), the step's new k/v written back."""
+    def step_fn(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len,
+                src=None):
+        pk, pv = self_k.clone(), self_v.clone()
+        if step:
+            rows = src[:step].long()
+            t = torch.arange(step, device=rows.device)[:, None]
+            pk[:, :step] = self_k[:, t, rows]
+            pv[:, :step] = self_v[:, t, rows]
+        out = decode_step(step, tgt, w, rot, pk, pv, mem_k, mem_v, mem_len)
+        self_k[:, step] = pk[:, step]
+        self_v[:, step] = pv[:, step]
+        return out
+    return step_fn
+
+
+def test_run_beam_ancestry_equals_physical_reorder(dev, model, monkeypatch):
+    """The beam search on the card with the kernels (16 crops x 5 beams,
+    40 steps): the ancestry table against the caches gathered by beam
+    parent every step gives equal sequences and bit-equal log-probs and
+    colour rows (the kernel reads the same values in the same order)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    memory = torch.randn((16, 48, 320), generator=g, device=dev)
+    lens = torch.randint(8, 49, (16,), generator=g, device=dev)
+    mask = torch.arange(48, device=dev)[None, :] >= lens[:, None]
+    got = ocr48.run_beam(model, memory, mask, 5, 40, 2)
+    monkeypatch.setattr(ocr48.decode_ops, 'decode_step',
+                        _physical_reorder(dops.decode_step))
+    ref = ocr48.run_beam(model, memory, mask, 5, 40, 2)
+    for key in ('best_seq', 'best_logprob', 'best_colors'):
+        assert torch.equal(got[key], ref[key]), key
+
+
+def _kernels_per_call(fn):
+    """Kernel launches on the card during one call of ``fn``
+    (torch.profiler), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and ('decode_step' in e.name or 'char_topk' in e.name)]
+
+
+def test_k2_and_k3_launch_one_kernel_per_call(dev, model):
+    """One cooperative launch per wrapper call, by the profiler's count of
+    the kernels that ran on the card."""
+    n, s_len, m_len = 24, 8, 16
+    w, ch, embd = model.packed(torch.bfloat16)
+    memory = torch.randn((n, m_len, 320), device=dev)
+    mask = torch.zeros((n, m_len), dtype=torch.bool, device=dev)
+    mem_k, mem_v, mem_len = ocr48.init_memory_kv(model, memory, mask, 1,
+                                                 torch.bfloat16)
+    rot = ocr48.rot_table(s_len, dev)
+    sk = torch.zeros((5, s_len, n, 320), dtype=torch.bfloat16, device=dev)
+    sv = torch.zeros_like(sk)
+    tgt = embd[torch.arange(3, 3 + n, device=dev)]
+    k2 = _kernels_per_call(lambda: dops.decode_step(
+        2, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len))
+    k3 = _kernels_per_call(lambda: charhead.char_topk(tgt, ch, 5))
+    assert len(k2) == 1, k2
+    assert len(k3) == 1, k3
+
+
+@pytest.mark.parametrize('vocab', [7935, 2322])
+@pytest.mark.parametrize('n', [37, 80, 120])
+def test_char_topk_kernel_full_vocab(dev, full_models, n, vocab):
+    """The released and the placeholder alphabets at the port's chunk
+    sizes and a ragged N: equal indices, or a near-tie whose logits agree
+    within 2e-2; values within 2e-2; two calls give the same bits."""
+    _, ch, _ = full_models[vocab].packed(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(n + vocab)
+    dec = torch.randn((n, 320), generator=g, device=dev).to(torch.bfloat16)
+    got_v, got_i = charhead.char_topk(dec, ch, 5)
+    again_v, again_i = charhead.char_topk(dec, ch, 5)
+    ref_v, ref_i = charhead.char_topk_ref(dec, ch, 5)
+    assert torch.equal(got_v, again_v) and torch.equal(got_i, again_i)
+    bad = got_i != ref_i
+    if bad.any():
+        h = torch.nn.functional.gelu(dec.float() @ ch['w1'].float()
+                                     + ch['b1']).to(dec.dtype)
+        logits = h.float() @ ch['wv'].float().t() + ch['bv']
+        gap = (logits.gather(1, got_i) - logits.gather(1, ref_i)).abs()[bad]
+        assert gap.max().item() < 2e-2
+    torch.testing.assert_close(got_v, ref_v, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize('k', [1, 2, 5])
