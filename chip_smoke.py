@@ -8,7 +8,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds every kernel of the port from ``manga_image_translator_tpu_torch/
    csrc`` with nvcc (sm_90a) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, within the stated tolerance (K1 bilateral, K2
+   shapes of the main path, within the stated tolerance (K1 bilateral on
+   the 2048x2048 canvas, the 1448x2048 page and uniform random bytes, K2
    decoder step at N=120 and 80 through a random ancestry table, K3 char
    head, K4 FourierUnit, K5 streaming conv), and the whole 18-block LaMa
    generator on a 512² crop in f32 against its plain routes;
@@ -192,15 +193,28 @@ def phase_build():
 # inputs at main-path shapes
 # ---------------------------------------------------------------------------
 
-def k1_inputs():
+@functools.lru_cache(maxsize=None)
+def k1_inputs(h=2048, w=2048, kind='page'):
+    """A page-like image (white paper, dark strokes, mild noise) or, for
+    ``kind='random'``, uniform random bytes (the worst case for anything
+    whose time depends on the colour distances)."""
     import numpy as np
     rs = np.random.RandomState(0)
-    # a page-like image: white paper, dark strokes, mild noise
-    page = np.full((2048, 2048, 3), 235, np.uint8)
-    page[rs.rand(2048, 2048) < 0.08] = 20
+    if kind == 'random':
+        return torch.from_numpy(rs.randint(0, 256, (h, w, 3)).astype(
+            np.uint8)).cuda()
+    page = np.full((h, w, 3), 235, np.uint8)
+    page[rs.rand(h, w) < 0.08] = 20
     page = np.clip(page.astype(np.int16) + rs.randint(-12, 13, page.shape),
                    0, 255).astype(np.uint8)
     return torch.from_numpy(page).cuda()
+
+
+# K1's inputs: the smoke's 2048x2048 canvas (its main number), the page
+# shape the pipeline runs it on, and uniform random bytes
+K1_INPUTS = {'canvas_2048': (2048, 2048, 'page'),
+             'page_1448x2048': (PAGE_H, PAGE_W, 'page'),
+             'random_2048': (2048, 2048, 'random')}
 
 
 def ocr_model(dict_size: int):
@@ -283,16 +297,20 @@ def phase_check(results):
     from manga_image_translator_tpu_torch.ops import bilateral, charhead
     from manga_image_translator_tpu_torch.ops import decode_step as dops
 
-    # K1 at a 2048x2048 detection canvas: <= 1 gray
-    img = k1_inputs()
-    got = bilateral.bilateral_filter_batch(img[None])[0]
-    ref = bilateral.bilateral_filter_ref(img)
-    torch.cuda.synchronize()
-    err = int((got.int() - ref.int()).abs().max())
-    emit({'phase': 'check', 'kernel': 'bilateral', 'shape': list(img.shape),
-          'max_abs_err': err, 'tol': 1})
-    require(err <= 1, f'bilateral: max abs err {err} gray > 1')
-    results['bilateral']['max_abs_err'] = err
+    # K1 at a 2048x2048 detection canvas, the 1448x2048 page and on random
+    # bytes: <= 1 gray
+    errs = []
+    for at, (h, w, kind) in K1_INPUTS.items():
+        img = k1_inputs(h, w, kind)
+        got = bilateral.bilateral_filter_batch(img[None])[0]
+        ref = bilateral.bilateral_filter_ref(img)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        emit({'phase': 'check', 'kernel': 'bilateral', 'at': at,
+              'shape': list(img.shape), 'max_abs_err': err, 'tol': 1})
+        require(err <= 1, f'bilateral at {at}: max abs err {err} gray > 1')
+        errs.append(err)
+    results['bilateral']['max_abs_err'] = max(errs)
 
     # K2 at the port's two chunk sizes (N=120: 24 crops, N=80: 16), S=256,
     # M=96 (a 384-px width bucket), bf16, steps 0-19 and 120-129 (the
@@ -836,26 +854,29 @@ def phase_times(results, forwards):
     from manga_image_translator_tpu_torch.ops import bilateral, charhead
     from manga_image_translator_tpu_torch.ops import decode_step as dops
 
-    # K1: one 2048x2048 canvas
-    img = k1_inputs()[None].contiguous()
-    n_img, h, wd, _ = img.shape
-    r = results['bilateral']
-    r['ms'] = cuda_ms(lambda: bilateral.bilateral_filter_batch(img))
-    r['plain_ms'] = cuda_ms(lambda: bilateral.bilateral_filter_ref(img),
-                            iters=5, warmup=1)
-    r['library_ms'] = None     # no single PyTorch call filters bilaterally
-    # the work the function needs, an FMA counted as 2 operations as the
-    # peak rate counts it: per tap, 3 FMAs and 1 add to accumulate; per
-    # symmetric pair of taps, one colour weight (the +o tap of p and the -o
-    # tap of p+o share it: 3 subtracts, 2 adds, 1 multiply; abs is a free
-    # modifier, exp of an integer distance a table read); per pixel, the
-    # centre tap and the normalisation, about 12
+    # K1 at each of its inputs (the 2048x2048 canvas is its main number)
     taps = len(bilateral.window_offsets(8)) - 1
-    pixels = n_img * h * wd
-    r['bound_ms'], r['bound_by'] = bound_ms(
-        2 * pixels * 3, pixels * (taps * 7 + taps // 2 * 6 + 12),
-        F32_OPS_PER_S)
-    r['shape'] = list(img.shape)
+    for at, (h, wd, kind) in K1_INPUTS.items():
+        img = k1_inputs(h, wd, kind)[None].contiguous()
+        r = {'shape': list(img.shape), 'data': kind}
+        r['ms'] = cuda_ms(lambda: bilateral.bilateral_filter_batch(img))
+        r['plain_ms'] = cuda_ms(lambda: bilateral.bilateral_filter_ref(img),
+                                iters=5, warmup=1)
+        r['library_ms'] = None   # no single PyTorch call filters bilaterally
+        # the work the function needs, an FMA counted as 2 operations as the
+        # peak rate counts it: per tap, 3 FMAs and 1 add to accumulate; per
+        # symmetric pair of taps, one colour weight (the +o tap of p and the
+        # -o tap of p+o share it: 3 subtracts, 2 adds, 1 multiply; abs is a
+        # free modifier, exp of an integer distance a table read); per
+        # pixel, the centre tap and the normalisation, about 12
+        pixels = img.shape[0] * h * wd
+        r['bound_ms'], r['bound_by'] = bound_ms(
+            2 * pixels * 3, pixels * (taps * 7 + taps // 2 * 6 + 12),
+            F32_OPS_PER_S)
+        if at == 'canvas_2048':
+            results['bilateral'].update(r)
+        else:
+            results['bilateral'][f'at_{at}'] = r
 
     # K2: one step at N=120, S=256, step 128, M=96
     model = ocr_model(7935)
@@ -926,8 +947,11 @@ def phase_times(results, forwards):
     r['shape'] = {'n': n, 'vocab': v, 'k': 5}
 
     times_lama(results, forwards)
-    emit({'phase': 'times', 'kernels': {k: {kk: vv for kk, vv in r.items()
-                                            if kk.endswith('ms')}
+
+    def times(r):       # the ms numbers, those at other inputs by input
+        return {k: (times(v) if k.startswith('at_') else v)
+                for k, v in r.items() if k.endswith('ms') or k.startswith('at_')}
+    emit({'phase': 'times', 'kernels': {k: times(r)
                                         for k, r in results.items()}})
 
 

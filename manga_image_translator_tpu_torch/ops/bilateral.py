@@ -10,7 +10,10 @@ then round-half-even and clip to uint8.
   the edge-padded image per window offset).
 * ``bilateral_filter`` / ``bilateral_filter_batch``: the wrappers. A CPU
   tensor takes the plain version; a CUDA tensor launches the hand-written
-  kernel ``csrc/bilateral.cu`` or raises.
+  kernel ``csrc/bilateral.cu`` or raises. Its C entry point picks the
+  kernel's instance by the radius and sigmas: the one unrolled for r = 8
+  with equal sigmas (the main path's d = 17, 80, 80), else the generic one
+  (1 <= r <= 16); the space weights travel in the launch's parameters.
 """
 from __future__ import annotations
 

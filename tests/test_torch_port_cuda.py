@@ -62,6 +62,51 @@ def test_bilateral_kernel_matches_plain(dev, shape, d):
     assert (got.int() - ref.int()).abs().max().item() <= 1
 
 
+def _bilateral_one_launch(imgs, d, sigma_color, sigma_space):
+    before = cuda_build.LAUNCHES['bilateral']
+    got = bilateral.bilateral_filter_batch(imgs, d, sigma_color, sigma_space)
+    assert cuda_build.LAUNCHES['bilateral'] == before + 1
+    ref = bilateral.bilateral_filter_ref(imgs, d, sigma_color, sigma_space)
+    return (got.int() - ref.int()).abs().max().item()
+
+
+@pytest.mark.parametrize('shape,d', [
+    ((1, 70, 90, 3), 3),        # radius 1, the generic instance
+    ((1, 70, 90, 3), 17),       # radius 8, the unrolled instance
+    ((1, 70, 90, 3), 33),       # radius 16, the largest the wrapper takes
+    ((3, 40, 50, 3), 17),       # N = 3: the batch is the grid's z
+    ((1, 5, 7, 3), 17),         # smaller than one 32x64 tile and its halo
+    ((1, 5, 7, 3), 9),
+    ((1, 65, 33, 3), 17),       # one past a multiple of the strip and tile
+    ((2, 129, 97, 3), 11),
+])
+def test_bilateral_kernel_edges(dev, shape, d):
+    """The redesigned K1 at its edges: both instances, the batch, images
+    smaller than a tile and one past a multiple of it; within 1 gray of
+    the plain version, one launch per call."""
+    rs = np.random.RandomState(sum(shape) + d)
+    imgs = torch.from_numpy(rs.randint(0, 256, shape).astype(np.uint8)).to(dev)
+    assert _bilateral_one_launch(imgs, d, 80.0, 80.0) <= 1
+
+
+def test_bilateral_space_weights_travel_with_each_launch(dev):
+    """Two launches with different sigma_space in a row on one stream, no
+    synchronisation between them: each matches its own plain result (the
+    space weights are a kernel parameter, not shared state)."""
+    rs = np.random.RandomState(7)
+    imgs = torch.from_numpy(rs.randint(0, 256, (1, 96, 80, 3)).astype(
+        np.uint8)).to(dev)
+    outs = [bilateral.bilateral_filter_batch(imgs, 17, 30.0, ss)
+            for ss in (2.0, 200.0)]
+    torch.cuda.synchronize()
+    refs = [bilateral.bilateral_filter_ref(imgs, 17, 30.0, ss)
+            for ss in (2.0, 200.0)]
+    for got, ref in zip(outs, refs):
+        assert (got.int() - ref.int()).abs().max().item() <= 1
+    assert not torch.equal(refs[0], refs[1])
+    assert _bilateral_one_launch(imgs, 17, 30.0, 2.0) <= 1
+
+
 def test_decode_step_kernel_matches_plain(dev, model):
     """Ragged N (10 rows), per-row memory lengths, 4 steps; bf16 storage
     rounds at the same places in both, f32 sums in another order: 5% of
