@@ -13,9 +13,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    decoder step at N=120 and 80 through a random ancestry table, K3 char
    head, K4 FourierUnit, K5 streaming conv), and the whole 18-block LaMa
    generator on a 512² crop in f32 against its plain routes;
-4. drives the port's main path — the ``local`` CLI mode (detect → 48px OCR →
-   textline merge → translate ``original`` → mask refinement → inpaint
-   ``lama_large`` → render ``default``) on two synthetic pages — with the
+4. writes a synthetic Sugoi model (the default translator's ct2 model at
+   its published widths, int8 weights from a seed, with its spm models)
+   into its own ``MIT_TPU_MODEL_DIR``; holds that transformer on the card
+   against the same model on the CPU (``translate_check``: encoder states
+   and first-step log-probs within 1e-4 of max |value|, equal tokens at
+   beam 5 and 1); drives the port's main path — the ``local`` CLI mode
+   with the default ``Config`` (detect → 48px OCR → textline merge →
+   translate ``sugoi`` → mask refinement → inpaint ``lama_large`` → render
+   ``default``) on two synthetic pages — with the
    launch counters set to 0 just before and read just after; random-weight
    detectors may find no text, so the OCR, mask-refinement, inpainting and
    rendering stage runners also run on the pages' known text boxes; every
@@ -23,7 +29,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    forward; the inpainted page may change only inside the mask, the
    rendered one only inside the text boxes; then runs the literal
    ``python -m manga_image_translator_tpu_torch local`` command in a
-   process of its own;
+   process of its own; prints a ``translate`` line per page (sentences,
+   chunks, decoder steps, stage ms, wall ms against device-busy µs per
+   beam step);
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -35,7 +43,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 6. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 It exits non-zero on any failure, and when CUDA is unavailable.
-Weights are random, made from fixed seeds (MIT_TPU_ALLOW_RANDOM_WEIGHTS=1).
+Weights are random, made from fixed seeds (MIT_TPU_ALLOW_RANDOM_WEIGHTS=1;
+the Sugoi model is written from a seed, since ct2 models have no random
+fallback).
 
 Two more modes compare two checkouts on one card:
 
@@ -56,6 +66,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import copy
 import functools
 import inspect
@@ -509,6 +520,369 @@ def check_lama(results):
 
 
 # ---------------------------------------------------------------------------
+# the default translator: a synthetic Sugoi model at the published width
+# ---------------------------------------------------------------------------
+
+# Sugoi V4 (ja->en) is the JParaCrawl "big" transformer: fairseq
+# transformer_vaswani_wmt_en_de_big (Morishita et al., LREC 2020), post-norm,
+# separate 32k source and target sentencepiece vocabularies
+SUGOI = {'d': 1024, 'heads': 16, 'ffn': 4096, 'layers': 6, 'vocab': 32000}
+SUGOI_DIR = 'translators/sugoi'       # under MIT_TPU_MODEL_DIR
+CHECK_SENTENCES = ['これはテストです。', '漫画の翻訳を確認します!']
+
+
+def _wstr(s: str) -> bytes:
+    import struct
+    raw = s.encode('utf-8') + b'\0'
+    return struct.pack('<H', len(raw)) + raw
+
+
+def _sugoi_vocabs():
+    """(source, target) pieces, 32,000 each. The source covers the 48px
+    OCR's offline alphabet (ASCII, kana, 2,048 CJK), bare and word-initial;
+    the target holds short Latin pieces."""
+    n = SUGOI['vocab']
+    specials = ['<unk>', '<s>', '</s>', '▁']
+    chars = ([chr(c) for c in range(33, 127)]
+             + [chr(c) for c in range(0x3041, 0x3097)]
+             + [chr(c) for c in range(0x30A1, 0x30FB)]
+             + [chr(c) for c in range(0x4E00, 0x4E00 + 2048)])
+    src = specials + chars + ['▁' + c for c in chars]
+    src += [f'▁ja{i}' for i in range(n - len(src))]
+
+    def latin(i):
+        s = ''
+        while True:
+            s += chr(97 + i % 26)
+            i //= 26
+            if not i:
+                return s
+    tgt = specials + [('▁' if i % 3 else '') + latin(i)
+                      for i in range(n - len(specials))]
+    return src, tgt
+
+
+def _write_spm(path, pieces, seed):
+    """A unigram sentencepiece model of ``pieces`` (the first three are
+    unk, <s>, </s>), scores from ``seed``."""
+    import struct
+    import numpy as np
+
+    def varint(v):
+        out = b''
+        while True:
+            b7 = v & 0x7F
+            v >>= 7
+            if v:
+                out += bytes([b7 | 0x80])
+            else:
+                return out + bytes([b7])
+
+    def ld(num, data):
+        return varint((num << 3) | 2) + varint(len(data)) + data
+
+    scores = -np.random.RandomState(seed).rand(len(pieces)) * 10
+    blob = bytearray()
+    for i, text in enumerate(pieces):
+        typ = 2 if i == 0 else 3 if i < 3 else 1
+        body = (ld(1, text.encode('utf-8')) + varint((2 << 3) | 5)
+                + struct.pack('<f', scores[i]) + varint(3 << 3) + varint(typ))
+        blob += ld(1, body)
+    with open(path, 'wb') as f:
+        f.write(bytes(blob))
+
+
+def write_sugoi_model(root, seed=0):
+    """The released sugoi archive's unpacked layout under ``root``
+    (``translators/sugoi/{spm.ja,spm.en}.nopretok.model``, ``big-ja-en/``
+    with a v6 ``model.bin``, the two vocabularies and ``config.json``), at
+    the published widths with weights from ``seed``: every matrix in int8
+    with its per-row ``_scale`` (uniform, std ~1/sqrt(fan-in) after
+    dequantisation), biases and layer norms in f32. Returns the parameter
+    count."""
+    import struct
+    import numpy as np
+    d, ffn, vocab = SUGOI['d'], SUGOI['ffn'], SUGOI['vocab']
+    rng = np.random.default_rng(seed)
+    shapes = {'encoder/embeddings/weight': (vocab, d),
+              'decoder/embeddings/weight': (vocab, d)}
+    for side, subs in (('encoder', ('self_attention', 'ffn')),
+                       ('decoder', ('self_attention', 'attention', 'ffn'))):
+        for i in range(SUGOI['layers']):
+            pre = f'{side}/layer_{i}'
+            shapes[f'{pre}/self_attention/linear_0'] = (3 * d, d)
+            shapes[f'{pre}/self_attention/linear_1'] = (d, d)
+            if side == 'decoder':
+                shapes[f'{pre}/attention/linear_0'] = (d, d)
+                shapes[f'{pre}/attention/linear_1'] = (2 * d, d)
+                shapes[f'{pre}/attention/linear_2'] = (d, d)
+            shapes[f'{pre}/ffn/linear_0'] = (ffn, d)
+            shapes[f'{pre}/ffn/linear_1'] = (d, ffn)
+            for sub in subs:
+                shapes[f'{pre}/{sub}/layer_norm'] = (d,)
+    shapes['decoder/projection'] = (vocab, d)
+
+    variables = []              # (name, array) in file order
+    params = 0
+    for name, shape in shapes.items():
+        if name.endswith('layer_norm'):
+            variables += [(f'{name}/gamma', (1 + 0.1 * rng.standard_normal(
+                d, np.float32)).astype(np.float32)),
+                (f'{name}/beta', 0.1 * rng.standard_normal(d, np.float32))]
+            params += 2 * d
+            continue
+        key = name if name.endswith('/weight') else f'{name}/weight'
+        q = rng.integers(-127, 128, shape, dtype=np.int8)
+        # rows' largest |w| around sqrt(3 / fan-in): std ~1/sqrt(fan-in)
+        amax = math.sqrt(3.0 / shape[1]) * rng.uniform(0.8, 1.2, shape[0])
+        variables += [(key, q), (key + '_scale',
+                                 (127 / amax).astype(np.float32))]
+        params += q.size
+        if not name.endswith('/weight'):
+            variables.append((f'{name}/bias', 0.02 * rng.standard_normal(
+                shape[0], np.float32)))
+            params += shape[0]
+
+    model_dir = os.path.join(root, SUGOI_DIR, 'big-ja-en')
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, 'model.bin'), 'wb') as f:
+        f.write(struct.pack('<I', 6) + _wstr('TransformerSpec')
+                + struct.pack('<II', 7, len(variables)))
+        for name, arr in variables:
+            dtype = 'int8' if arr.dtype == np.int8 else 'float32'
+            f.write(_wstr(name) + struct.pack('<B', arr.ndim)
+                    + struct.pack(f'<{arr.ndim}I', *arr.shape) + _wstr(dtype)
+                    + struct.pack('<I', arr.nbytes))
+            f.write(arr.tobytes())
+        f.write(struct.pack('<I', 0))
+    src, tgt = _sugoi_vocabs()
+    for side, pieces in (('source', src), ('target', tgt)):
+        with open(os.path.join(model_dir, f'{side}_vocabulary.txt'), 'w',
+                  encoding='utf-8') as f:
+            f.write('\n'.join(pieces) + '\n')
+    with open(os.path.join(model_dir, 'config.json'), 'w') as f:
+        json.dump({'num_heads': SUGOI['heads']}, f)
+    for lang, pieces, s in (('ja', src, seed + 1), ('en', tgt, seed + 2)):
+        _write_spm(os.path.join(root, SUGOI_DIR,
+                                f'spm.{lang}.nopretok.model'), pieces, s)
+    return params
+
+
+def phase_sugoi_model():
+    t0 = time.perf_counter()
+    params = write_sugoi_model(os.environ['MIT_TPU_MODEL_DIR'])
+    path = os.path.join(os.environ['MIT_TPU_MODEL_DIR'], SUGOI_DIR,
+                        'big-ja-en', 'model.bin')
+    emit({'phase': 'sugoi_model', **SUGOI, 'params': params,
+          'model_bin_bytes': os.path.getsize(path),
+          'seconds': time.perf_counter() - t0})
+
+
+def phase_translate_check(max_len=16):
+    """The ct2 transformer at the full Sugoi width on the card against the
+    same model on the CPU, on two sentences: encoder states and first-step
+    log-probs within 1e-4 of max |value|, equal tokens at beam 5 and 1."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    from manga_image_translator_tpu_torch.utils import spm_lite
+    t0 = time.perf_counter()
+    root = os.path.join(os.environ['MIT_TPU_MODEL_DIR'], SUGOI_DIR)
+    model_dir = os.path.join(root, 'big-ja-en')
+    variables = ct2_model.read_ct2_model(os.path.join(model_dir, 'model.bin'))
+    vocabs = ct2_model.load_vocabulary(model_dir)
+    cfg = ct2_model.read_config(model_dir)
+    card = ct2_model.Ct2Transformer(variables, cfg, *vocabs)
+    require(card.device.type == 'cuda' and all(
+        b.is_cuda for b in card.buffers()), 'the ct2 model is not on the card')
+    cpu = ct2_model.Ct2Transformer(variables, cfg, *vocabs, device='cpu')
+    del variables
+    sp = spm_lite.SentencePieceModel.load(
+        os.path.join(root, 'spm.ja.nopretok.model'))
+    batch = [sp.encode(s, out_type=str) for s in CHECK_SENTENCES]
+    errs = {}
+
+    def rel(name, ref, got):
+        ref = ref.float().cpu()
+        errs[name] = float((got.float().cpu() - ref).abs().max()
+                           / ref.abs().max())
+        require(errs[name] <= 1e-4, f'translate_check: {name} off by '
+                f'{errs[name]:.3g} of max |value|')
+
+    with torch.inference_mode():
+        outs = {}
+        for name, m in (('cpu', cpu), ('card', card)):
+            tokens, lengths, prefix, prefix_len = m.prepare(batch)
+            memory, _ = m.encode(torch.from_numpy(tokens).to(m.device),
+                                 torch.from_numpy(lengths).to(m.device))
+            search = ct2_model.BeamSearch(m, tokens, lengths, prefix,
+                                          prefix_len, max_len=max_len,
+                                          beam_size=5)
+            logits = search.forward(search.toks[:, :, 0].reshape(-1), 0)
+            outs[name] = (memory, torch.log_softmax(logits, -1))
+        rel('encoder_states', outs['cpu'][0], outs['card'][0])
+        rel('first_step_logprobs', outs['cpu'][1], outs['card'][1])
+    tokens = {}
+    for beam in (5, 1):
+        ref = cpu.translate_batch(batch, beam_size=beam, max_len=max_len)
+        got = card.translate_batch(batch, beam_size=beam, max_len=max_len)
+        require(got == ref, f'translate_check: beam {beam} tokens differ '
+                f'between the card and the CPU:\n{got}\n{ref}')
+        tokens[f'beam_{beam}'] = [len(t) for t in got]
+    emit({'phase': 'translate_check', 'sentences': len(batch),
+          'source_pieces': [len(t) for t in batch], 'max_len': max_len,
+          'rel_err': errs, 'tokens_equal': True, 'output_lengths': tokens,
+          'seconds': time.perf_counter() - t0})
+
+
+@contextlib.contextmanager
+def recording_decodes(log):
+    """Every ``Ct2Transformer.translate_batch`` call inside the block is
+    appended to ``log``: the model, the pieces, the keywords, the
+    device-synchronised wall ms and the decoder steps."""
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    inner = ct2_model.Ct2Transformer.translate_batch
+
+    def recorded(self, batch_tokens, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(self, batch_tokens, **kw)
+        torch.cuda.synchronize()
+        log.append({'model': self, 'batch': batch_tokens, 'kw': kw,
+                    'wall_ms': (time.perf_counter() - t0) * 1e3,
+                    'steps': self.last_steps})
+        return out
+    ct2_model.Ct2Transformer.translate_batch = recorded
+    try:
+        yield
+    finally:
+        ct2_model.Ct2Transformer.translate_batch = inner
+
+
+def decode_busy_us(call, chunk=2):
+    """Device time per beam step of a recorded decode, by CUDA events: the
+    same search replayed ``chunk`` steps at a time, each chunk enqueued
+    behind ~20 ms of ``torch.cuda._sleep`` so that the host's pace stays
+    out of the number (a chunk is ~600 launches: more would fill the
+    launch queue, and the host would wait for the sleep). Returns (µs per
+    step, the number of chunks whose enqueue outlasted the sleep: those
+    hold idle time)."""
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    model, kw = call['model'], call['kw']
+    total_ms, late = 0.0, 0
+    with torch.inference_mode():
+        search = ct2_model.BeamSearch(
+            model, *model.prepare(call['batch']),
+            max_len=kw.get('max_len', 200),
+            rep_penalty=kw.get('repetition_penalty', 3.0),
+            beam_size=kw.get('beam_size', 5))
+        while search.t < call['steps']:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(min(chunk, call['steps'] - search.t)):
+                search.step()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            b.synchronize()
+            total_ms += a.elapsed_time(b)
+            late += enqueue_ms > SLEEP_CYCLES / 1.98e6
+    return total_ms / call['steps'] * 1e3, late
+
+
+def decode_step_work(model, b, rows, s_len, t):
+    """(bytes, f32 operations) one beam step at step ``t`` needs: the
+    decoder's weights and the projection read once, every layer's K/V
+    cache at positions 0..t and the memory K/V (one copy a sentence) read
+    once, the new K/V rows written once; the linear layers' products for
+    ``rows`` rows and the attention's over t + 1 and ``s_len`` keys."""
+    d, n = model.d_model, model.n_dec
+    params = sum(v.numel() for k, v in model.named_buffers()
+                 if k.startswith('decoder/') and 'embeddings' not in k)
+    nbytes = 4 * (params + 2 * n * rows * (t + 1) * d
+                  + 2 * n * b * s_len * d + 2 * n * rows * d)
+    ops = 2 * rows * params + 4 * n * rows * d * (t + 1 + s_len)
+    return nbytes, ops
+
+
+def phase_translate_kernels(call, at=96, steps=8, top=8):
+    """Device µs per beam step by kernel over steps ``at`` .. ``at +
+    steps`` of a recorded decode (a torch.profiler trace of the replayed
+    search): the ``top`` kernels by time, all kernels' sum and count, the
+    window's span, and the least time the card could take for a step
+    (``bound_us``: the larger of its bytes over the HBM rate and its f32
+    operations over the CUDA cores' peak, averaged over the window)."""
+    from torch.profiler import ProfilerActivity, profile
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    model, kw = call['model'], call['kw']
+    with torch.inference_mode():
+        search = ct2_model.BeamSearch(
+            model, *model.prepare(call['batch']),
+            max_len=kw.get('max_len', 200),
+            rep_penalty=kw.get('repetition_penalty', 3.0),
+            beam_size=kw.get('beam_size', 5))
+        while search.t < at:
+            search.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                search.step()
+            torch.cuda.synchronize()
+    path = os.path.join(OUT, 'translate_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ks = [e for e in json.load(f)['traceEvents']
+              if e.get('cat') == 'kernel']
+    by = collections.Counter()
+    for e in ks:
+        by[e['name'][:90]] += e['dur'] / steps
+    span = (max(e['ts'] + e['dur'] for e in ks)
+            - min(e['ts'] for e in ks)) / steps
+    tokens = model.prepare(call['batch'])[0]
+    bounds = [bound_ms(*decode_step_work(model, search.b, search.bk,
+                                         tokens.shape[1], t),
+                       F32_OPS_PER_S) for t in range(at, at + steps)]
+    emit({'phase': 'translate_kernels', 'rows': search.bk,
+          'source_len': tokens.shape[1],
+          'bound_us': statistics.mean(b for b, _ in bounds) * 1e3,
+          'bound_by': bounds[0][1],
+          'steps': [at, at + steps], 'busy_us': sum(by.values()),
+          'span_us': span, 'kernels': len(ks) / steps,
+          'top_us': dict(by.most_common(top))})
+
+
+def phase_translate(extra):
+    """One ``translate`` line per page of the known-box pass: sentences
+    (queries) and chunks (sugoi's decoder batch), decoder rows and source
+    length, decoder steps, the translate stage's ms, and the decode's wall
+    ms per beam step against its device-busy µs per step. Returns the
+    first page's decode."""
+    for name, r in sorted(extra.items()):
+        t = r['translate']
+        require(len(t['decodes']) == 1,
+                f'{name}: {len(t["decodes"])} decodes in the translate stage')
+        call = t['decodes'][0]
+        busy_us, late = decode_busy_us(call)
+        tokens = call['model'].prepare(call['batch'])[0]
+        emit({'phase': 'translate', 'page': name, 'translator': 'sugoi',
+              'device': str(call['model'].device),
+              'sentences': t['sentences'], 'chunks': t['chunks'],
+              'beam': call['kw'].get('beam_size'),
+              'rows': tokens.shape[0] * call['kw'].get('beam_size', 5),
+              'source_len': tokens.shape[1], 'steps': call['steps'],
+              'stage_ms': r['stage_ms']['translate'],
+              'decode_wall_ms': call['wall_ms'],
+              'wall_ms_per_step': call['wall_ms'] / call['steps'],
+              'busy_us_per_step': busy_us,
+              'replay_chunks_host_late': late,
+              'translations': t['translations']})
+    return extra['page0.png']['translate']['decodes'][0]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -543,16 +917,18 @@ def make_pages(page_dir):
     return boxes
 
 
-async def _known_quads_pass(translator, config, page_path, quads):
+async def _known_quads_pass(translator, config, page_path, quads, decodes):
     """OCR + merge + translate + mask refinement + inpainting + rendering
     through the orchestrator's stage runners on the page's known text boxes
     (the random-weight detector may find none); returns per-stage ms
-    (device synchronised) and what each stage changed. Writes the inpainted
-    and the rendered page under OUT."""
+    (device synchronised), what each stage changed and what the translate
+    stage decoded (``decodes``: the ``recording_decodes`` log). Writes the
+    inpainted and the rendered page under OUT."""
     import cv2
     import numpy as np
     from PIL import Image
-    from manga_image_translator_tpu_torch import inpainting, rendering
+    from manga_image_translator_tpu_torch import (inpainting, rendering,
+                                                  translators)
     from manga_image_translator_tpu_torch.utils.generic import (Context,
                                                                 load_image)
     from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
@@ -577,8 +953,15 @@ async def _known_quads_pass(translator, config, page_path, quads):
                                                                    ctx))
     ctx.text_regions = await timed(
         'textline_merge', lambda: translator._run_textline_merge(config, ctx))
+    first_decode = len(decodes)
     ctx.text_regions = await timed(
         'translate', lambda: translator._run_text_translation(config, ctx))
+    sugoi = translators.get_translator(config.translator.translator)
+    translated = {'sentences': len(sugoi.query_split_sizes),
+                  'chunks': sum(sugoi.query_split_sizes),
+                  'decodes': decodes[first_decode:],
+                  'translations': [r.translation[:60]
+                                   for r in ctx.text_regions[:3]]}
     ctx.mask = await timed('mask_refine',
                            lambda: translator._run_mask_refinement(config,
                                                                    ctx))
@@ -617,7 +1000,8 @@ async def _known_quads_pass(translator, config, page_path, quads):
             'inpainted_pixels_outside': int((inpainted & ~inside).sum()),
             'rendered_pixels_in_boxes': int((rendered & boxes).sum()),
             'rendered_pixels_outside': int((rendered & ~boxes).sum()),
-            'forwards': [list(f) for f in forwards], 'stage_ms': ms}
+            'forwards': [list(f) for f in forwards], 'stage_ms': ms,
+            'translate': translated}
 
 
 def phase_pipeline():
@@ -627,7 +1011,7 @@ def phase_pipeline():
     from manga_image_translator_tpu_torch.mode.local import (
         MangaTranslatorLocal, load_config_file)
     from manga_image_translator_tpu_torch import inpainting
-    from manga_image_translator_tpu_torch.config import Inpainter
+    from manga_image_translator_tpu_torch.config import Inpainter, Translator
     from manga_image_translator_tpu_torch.ops import cuda_build
 
     page_dir = os.path.join(WORK, 'pages')
@@ -642,7 +1026,7 @@ def phase_pipeline():
         json.dump({'detector': {'detector': 'default',
                                 'detection_size': 2048},
                    'ocr': {'ocr': '48px', 'prob': 0.0},
-                   'translator': {'translator': 'original',
+                   'translator': {'translator': 'sugoi',
                                   'target_lang': 'ENG',
                                   'no_text_lang_skip': True,
                                   'enable_post_translation_check': False},
@@ -659,6 +1043,7 @@ def phase_pipeline():
             stage_ms.append((name, float(ms)))
 
     inp = inpainting.get_inpainter(Inpainter.lama_large)
+    decodes = []
 
     async def drive():
         translator = MangaTranslatorLocal(args_dict)
@@ -667,20 +1052,29 @@ def phase_pipeline():
         translator.add_progress_hook(hook)
         await translator.translate_path(args_dict['input'], dest, args_dict)
         config = load_config_file(cfg_path)
+        require(config.translator.translator == Translator.sugoi,
+                f'the pipeline runs {config.translator.translator}')
         extra = {}
         for name, quads in boxes.items():
             extra[name] = await _known_quads_pass(
-                translator, config, os.path.join(page_dir, name), quads)
+                translator, config, os.path.join(page_dir, name), quads,
+                decodes)
         return extra
 
     torch.cuda.synchronize()
     inp.forwards = []
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
-    extra = asyncio.run(drive())
+    with recording_decodes(decodes):
+        extra = asyncio.run(drive())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = cuda_build.launch_counts()
+    for call in decodes:
+        model = call['model']
+        require(model.device.type == 'cuda' and all(
+            b.is_cuda for b in model.buffers()),
+            f'the ct2 model ran on {model.device}, not the card')
 
     written = sorted(os.listdir(dest)) if os.path.isdir(dest) else []
     pages = {}
@@ -694,7 +1088,12 @@ def phase_pipeline():
     forwards = list(inp.forwards)
     buckets = collections.Counter(tuple(f) for f in forwards)
     emit({'phase': 'pipeline', 'wall_s': wall, 'stage_ms': stage_ms,
-          'known_box_pass': extra, 'pages_written': written,
+          'known_box_pass': {
+              name: {k: v for k, v in r.items() if k != 'translate'}
+              for name, r in extra.items()},
+          'decodes': [{k: c[k] for k in ('wall_ms', 'steps')}
+                      for c in decodes],
+          'pages_written': written,
           'pages': pages, 'launches': counts,
           'lama_forwards': {f'{n}x{h}x{w}': k
                             for (n, h, w), k in sorted(buckets.items())},
@@ -717,12 +1116,14 @@ def phase_pipeline():
                 f'{name}: inpainting changed {r["inpainted_pixels_inside"]} '
                 f'pixels inside the mask, {r["inpainted_pixels_outside"]} '
                 f'outside')
+        require(r['translate']['decodes'],
+                f'{name}: the translate stage decoded nothing')
         require(r['drawn_regions'] > 0 and r['rendered_pixels_in_boxes'] > 0
                 and r['rendered_pixels_outside'] == 0,
                 f'{name}: rendering changed {r["rendered_pixels_in_boxes"]} '
                 f'pixels in the text boxes, {r["rendered_pixels_outside"]} '
                 f'outside')
-    return counts, forwards, page_dir, cfg_path
+    return counts, forwards, page_dir, cfg_path, extra
 
 
 def phase_cli(page_dir, cfg_path):
@@ -1460,8 +1861,9 @@ def main(argv=None) -> int:
         return compare(args.compare_with, args.pairs)
     sys.path.insert(0, ROOT)
     os.environ.setdefault('MIT_TPU_ALLOW_RANDOM_WEIGHTS', '1')
-    os.environ.setdefault('MIT_TPU_MODEL_DIR',
-                          os.path.join(WORK, 'no-models'))
+    # the smoke's own model dir: the synthetic Sugoi model only, so every
+    # other stage runs on seeded random weights
+    os.environ['MIT_TPU_MODEL_DIR'] = os.path.join(WORK, 'models')
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(OUT)
     import manga_image_translator_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -1473,7 +1875,10 @@ def main(argv=None) -> int:
     build_seconds = phase_build()
     results = {name: {} for name in META}
     phase_check(results)
-    counts, forwards, page_dir, cfg_path = phase_pipeline()
+    phase_sugoi_model()
+    phase_translate_check()
+    counts, forwards, page_dir, cfg_path, extra = phase_pipeline()
+    decode = phase_translate(extra)
     phase_cli(page_dir, cfg_path)
     phase_breakdown()
     phase_times(results, forwards)
@@ -1481,6 +1886,7 @@ def main(argv=None) -> int:
     phase_beam_step()
     phase_ocr_page()
     phase_lama_trace(forwards)
+    phase_translate_kernels(decode)
     kernels = []
     for name, (route, source, replaces) in META.items():
         r = results[name]

@@ -34,6 +34,12 @@ def resolve_device(use_gpu=None) -> torch.device:
     return torch.device('cuda', 0)
 
 
+def device_named(name=None) -> torch.device:
+    """The device a stage is handed by name: the CPU for ``'cpu'``; the card
+    for anything else, ``None`` included (raises when there is none)."""
+    return resolve_device(name is None or torch.device(name).type != 'cpu')
+
+
 def synchronize(device) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if torch.device(device).type == 'cuda':

@@ -1,8 +1,9 @@
 """Translator stage: registry, chain dispatch, batch dispatch.
 
-Contract from reference ``translators/__init__.py:32-167``. The port
-serves ``none`` and ``original``; every other translator name is accepted by
-the config and raises "not ported yet" when used.
+Contract from reference ``translators/__init__.py:32-167``. Every
+``Translator`` name has a factory; all but ``none``, ``original`` and
+``offline`` import their module at first use, so a machine without
+``aiohttp`` or ``transformers`` runs the others.
 """
 from __future__ import annotations
 
@@ -22,26 +23,56 @@ from .common import (
     OfflineTranslator,
 )
 from .trivial import NoneTranslator, OriginalTranslator
+from .selective import SelectiveOfflineTranslator, prepare as prepare_selective
 
 
-def _not_ported(name: str):
+def _lazy(module: str, cls: str):
     def factory():
-        raise NotImplementedError(
-            f'translator "{name}" is not ported yet (ROADMAP A.8: '
-            f'translators)')
-    factory.__name__ = name
+        import importlib
+        mod = importlib.import_module(f'.{module}', __package__)
+        return getattr(mod, cls)()
+    factory.__name__ = cls
     return factory
 
 
-# every Translator name resolves (config validation), only none/original run
-TRANSLATORS = {t: _not_ported(t.value) for t in Translator}
-TRANSLATORS[Translator.none] = NoneTranslator
-TRANSLATORS[Translator.original] = OriginalTranslator
-OFFLINE_TRANSLATORS = {t: TRANSLATORS[t] for t in (
-    Translator.offline, Translator.nllb, Translator.nllb_big, Translator.sugoi,
-    Translator.jparacrawl, Translator.jparacrawl_big, Translator.m2m100,
-    Translator.m2m100_big, Translator.m2m100_hf, Translator.m2m100_hf_big,
-    Translator.mbart50, Translator.qwen2, Translator.qwen2_big)}
+OFFLINE_TRANSLATORS = {
+    Translator.offline: SelectiveOfflineTranslator,
+    Translator.nllb: _lazy('hf_offline', 'NLLBTranslator'),
+    Translator.nllb_big: _lazy('hf_offline', 'NLLBBigTranslator'),
+    Translator.sugoi: _lazy('ct2_offline', 'SugoiTranslator'),
+    Translator.jparacrawl: _lazy('ct2_offline', 'JparacrawlTranslator'),
+    Translator.jparacrawl_big: _lazy('ct2_offline', 'JparacrawlBigTranslator'),
+    Translator.m2m100: _lazy('ct2_offline', 'M2M100Translator'),
+    Translator.m2m100_big: _lazy('ct2_offline', 'M2M100BigTranslator'),
+    Translator.m2m100_hf: _lazy('hf_offline', 'M2M100HFTranslator'),
+    Translator.m2m100_hf_big: _lazy('hf_offline', 'M2M100HFBigTranslator'),
+    Translator.mbart50: _lazy('hf_offline', 'MBart50Translator'),
+    Translator.qwen2: _lazy('hf_offline', 'Qwen2Translator'),
+    Translator.qwen2_big: _lazy('hf_offline', 'Qwen2BigTranslator'),
+}
+
+GPT_TRANSLATORS = {
+    Translator.chatgpt: _lazy('chatgpt', 'OpenAITranslator'),
+    Translator.chatgpt_2stage: _lazy('two_stage', 'ChatGPT2StageTranslator'),
+    Translator.deepseek: _lazy('chatgpt', 'DeepseekTranslator'),
+    Translator.groq: _lazy('chatgpt', 'GroqTranslator'),
+    Translator.custom_openai: _lazy('chatgpt', 'CustomOpenAiTranslator'),
+    Translator.gemini: _lazy('gemini', 'GeminiTranslator'),
+    Translator.gemini_2stage: _lazy('two_stage', 'Gemini2StageTranslator'),
+}
+
+TRANSLATORS = {
+    Translator.youdao: _lazy('web', 'YoudaoTranslator'),
+    Translator.baidu: _lazy('web', 'BaiduTranslator'),
+    Translator.deepl: _lazy('web', 'DeeplTranslator'),
+    Translator.papago: _lazy('web', 'PapagoTranslator'),
+    Translator.caiyun: _lazy('web', 'CaiyunTranslator'),
+    Translator.none: NoneTranslator,
+    Translator.original: OriginalTranslator,
+    Translator.sakura: _lazy('sakura', 'SakuraTranslator'),
+    **GPT_TRANSLATORS,
+    **OFFLINE_TRANSLATORS,
+}
 
 translator_cache = {}
 
@@ -56,10 +87,13 @@ def get_translator(key: Translator) -> CommonTranslator:
     return translator_cache[key]
 
 
+prepare_selective(get_translator)
+
+
 async def dispatch(chain: TranslatorChain, queries: List[str],
                    translator_config: Optional[TranslatorConfig] = None,
                    use_mtpe: bool = False, args: Optional[Context] = None,
-                   device: str = 'cpu') -> List[str]:
+                   device: str = 'cuda') -> List[str]:
     if not queries:
         return queries
 
@@ -103,7 +137,7 @@ async def dispatch_batch(chain: TranslatorChain,
                          translator_config: Optional[TranslatorConfig] = None,
                          use_mtpe: bool = False,
                          args: Optional[Context] = None,
-                         device: str = 'cpu') -> List[List[str]]:
+                         device: str = 'cuda') -> List[List[str]]:
     """Flatten page batches into one translator call, then regroup
     (reference translators/__init__.py:134-167)."""
     if not batch_queries or not any(batch_queries):

@@ -291,7 +291,7 @@ class OfflineTranslator(CommonTranslator, ModelWrapper):
         ...
 
     async def load(self, from_lang: str = 'auto', to_lang: str = 'ENG',
-                   device: str = 'cpu'):
+                   device: str = 'cuda'):
         if not self.is_loaded:
             await ModelWrapper.load(self, device)
 

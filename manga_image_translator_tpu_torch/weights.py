@@ -13,6 +13,12 @@ inverts the JAX package's ``convert_state_dict`` so that the same seeded
 
 It takes numpy arrays (or anything ``np.asarray`` accepts) and never
 imports JAX.
+
+The ct2 translators need no bridge: both packages read the same CTranslate2
+``model.bin``, and the port's ``translators.ct2_model.Ct2Transformer`` takes
+the very ``{ct2 variable name: np.ndarray}`` dict (``TransformerSpec``
+naming, dequantised to f32) that ``read_ct2_model`` returns in either
+package.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 decoder step, K3 char-head top-k, K4 FourierUnit, K5 streaming conv)
 against its plain PyTorch version on the same CUDA inputs, at small,
 ragged and full-width shapes, the wrappers' refusals, K2 and K3's one
-launch per call, and the beam search's ancestry table against a physical
-reorder of the cache.
+launch per call, the beam search's ancestry table against a physical
+reorder of the cache, and the ct2 transformer of the translators (plain
+PyTorch) on the card against the CPU.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -474,3 +475,53 @@ def test_generator_kernels_match_plain_routes(dev, f32_references,
     torch.cuda.synchronize()
     assert ((ref > 0.01) & (ref < 0.99)).float().mean().item() > 0.5
     assert (got - ref).abs().max().item() < 1e-3
+
+
+def _ct2_variables(d=64, ffn=128, layers=2, vocab=50, seed=0):
+    """A ct2 TransformerSpec variable dict (post-norm) from ``seed``."""
+    rs = np.random.RandomState(seed)
+    v = {'encoder/embeddings/weight': rs.randn(vocab, d) * 0.1,
+         'decoder/embeddings/weight': rs.randn(vocab, d) * 0.1,
+         'decoder/projection/weight': rs.randn(vocab, d) * 0.1,
+         'decoder/projection/bias': rs.randn(vocab) * 0.01}
+    linears = {'self_attention/linear_0': (3 * d, d),
+               'self_attention/linear_1': (d, d),
+               'ffn/linear_0': (ffn, d), 'ffn/linear_1': (d, ffn)}
+    cross = {'attention/linear_0': (d, d), 'attention/linear_1': (2 * d, d),
+             'attention/linear_2': (d, d)}
+    for side, lin in (('encoder', linears), ('decoder', {**linears,
+                                                         **cross})):
+        for i in range(layers):
+            for name, shape in lin.items():
+                v[f'{side}/layer_{i}/{name}/weight'] = rs.randn(*shape) * 0.1
+                v[f'{side}/layer_{i}/{name}/bias'] = rs.randn(shape[0]) * 0.01
+            for sub in {n.split('/')[0] for n in lin}:
+                v[f'{side}/layer_{i}/{sub}/layer_norm/gamma'] = (
+                    1 + 0.1 * rs.randn(d))
+                v[f'{side}/layer_{i}/{sub}/layer_norm/beta'] = 0.1 * rs.randn(d)
+    return {k: a.astype(np.float32) for k, a in v.items()}
+
+
+@pytest.mark.parametrize('beam', [1, 5])
+def test_ct2_transformer_on_card_matches_cpu(dev, beam):
+    """The ct2 transformer (the sugoi path, no hand-written kernel) at
+    d=64: encoder states within 1e-4 of max |value| and equal tokens,
+    forced prefixes included, between the card and the CPU."""
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    vocab = ['<unk>', '<s>', '</s>'] + [f'▁w{i}' for i in range(47)]
+    variables = _ct2_variables()
+    cfg = {'num_heads': 4}
+    card = ct2_model.Ct2Transformer(variables, cfg, vocab, None, device=dev)
+    cpu = ct2_model.Ct2Transformer(variables, cfg, vocab, None, device='cpu')
+    assert all(b.is_cuda for b in card.buffers())
+    batch = [['▁w0', '▁w1', '▁w5'], ['▁w2'], ['▁w3', '▁w3', '▁w9', '▁w4']]
+    tokens, lengths, _, _ = cpu.prepare(batch)
+    with torch.inference_mode():
+        ref, _ = cpu.encode(torch.from_numpy(tokens), torch.from_numpy(lengths))
+        got, _ = card.encode(torch.from_numpy(tokens).to(dev),
+                             torch.from_numpy(lengths).to(dev))
+    assert (got.cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()
+    for prefix in (None, [['▁w7'], ['▁w9', '▁w2'], []]):
+        kw = dict(beam_size=beam, max_len=24, target_prefix=prefix)
+        assert card.translate_batch(batch, **kw) == cpu.translate_batch(
+            batch, **kw)

@@ -164,3 +164,41 @@ def test_compute_memory_matches_jax(beam_case, monkeypatch):
     np.testing.assert_array_equal(np.asarray(mask_j), mask.numpy())
     np.testing.assert_allclose(np.asarray(mem_j), memory.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize('n,w,seed', [(2, 32, 7), (4, 64, 13)])
+def test_bf16_memory_and_sequences_match_jax(n, w, seed, monkeypatch):
+    """The default OCR path: backbone + encoder in bf16 activations
+    (``MIT_TPU_OCR_BF16_BACKBONE`` unset on both sides). The memories agree
+    within the JAX suite's bf16 bound, 0.15 x mean |memory|
+    (tests/test_ocr48.py:323), and the beam sequences are equal, as that
+    suite requires of its bf16 and f32 paths. The JAX side is traced afresh:
+    its jitted functions read the switch at their first trace."""
+    monkeypatch.delenv('MIT_TPU_OCR_BF16_BACKBONE', raising=False)
+    monkeypatch.setenv('MIT_TPU_OCR_PALLAS', '0')
+    monkeypatch.setenv('MIT_TPU_MESH', '0')
+    params = jax_ocr48.init_params(dict_size=48)
+    rs = np.random.RandomState(seed)
+    images = rs.rand(n, 48, w, 3).astype(np.float32) * 2 - 1
+    widths = rs.randint(w // 2, w + 1, n).astype(np.int32)
+
+    def ref(p, im, wd):
+        memory, mask = jax_ocr48.compute_memory.__wrapped__(p, im, wd)
+        return memory, mask, jax_ocr48.beam_decode_from_memory.__wrapped__(
+            p, memory, mask, beams_k=3, max_len=10, max_finished_hypos=2)
+
+    mem_j, mask_j, out_j = jax.jit(ref)(params, jnp.asarray(images),
+                                        jnp.asarray(widths))
+    model = _port_model(params, 48)
+    memory, mask = ocr48.compute_memory(model, torch.from_numpy(images),
+                                        torch.from_numpy(widths), True)
+    mem_j = np.asarray(mem_j, np.float32)
+    drift = np.abs(mem_j - memory.float().numpy()).max()
+    scale = np.abs(mem_j).mean()
+    assert drift < 0.15 * max(scale, 1e-3), (drift, scale)
+    np.testing.assert_array_equal(np.asarray(mask_j), mask.numpy())
+    got = ocr48.beam_decode(model, torch.from_numpy(images),
+                            torch.from_numpy(widths), beams_k=3, max_len=10,
+                            bf16_backbone=True)
+    np.testing.assert_array_equal(np.asarray(out_j['sequences']),
+                                  got['sequences'].numpy())

@@ -81,8 +81,9 @@ def test_load_rejects_missing_and_misshaped(ocr_params):
 
 
 def test_port_never_imports_jax():
-    """The port's main path and CLI import neither jax nor the JAX
-    package (a fresh interpreter: this test process already has jax)."""
+    """The port's main path, CLI and ct2 translators import neither jax nor
+    the JAX package, nor the packages only other translators need (a fresh
+    interpreter: this test process already has jax)."""
     code = (
         'import sys\n'
         'import manga_image_translator_tpu_torch.manga_translator\n'
@@ -99,10 +100,20 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.rendering\n'
         'import manga_image_translator_tpu_torch.rendering.text_render_eng\n'
         'import manga_image_translator_tpu_torch.rendering.hyphenation\n'
+        'import manga_image_translator_tpu_torch.translators\n'
+        'import manga_image_translator_tpu_torch.translators.ct2_model\n'
+        'import manga_image_translator_tpu_torch.translators.ct2_offline\n'
+        'import manga_image_translator_tpu_torch.translators.selective\n'
+        'import manga_image_translator_tpu_torch.translators.hf_offline\n'
+        'import manga_image_translator_tpu_torch.utils.spm_lite\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
-        'assert not bad, bad\n')
+        'assert not bad, bad\n'
+        '# the card machine may lack these: only a chosen translator imports\n'
+        'late = [m for m in ("aiohttp", "openai", "transformers")\n'
+        '        if m in sys.modules]\n'
+        'assert not late, late\n')
     env = dict(os.environ)
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
