@@ -32,6 +32,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    process of its own; prints a ``translate`` line per page (sentences,
    chunks, decoder steps, stage ms, wall ms against device-busy µs per
    beam step);
+   the batch path: ``translate_batch`` on three pages (``batch``, its
+   launch counters set to 0 just before and read just after; the
+   detection pre-pass's line lists become the pages' known boxes), which
+   must serve every page in its batched detection, pooled OCR and batched
+   inpainting, launch every kernel, read the same texts as the per-page
+   OCR and change pixels only inside the mask and the text boxes; K1 on
+   its three letterboxed canvases and the generator at its largest crop
+   bucket against their plain versions; the HTTP gateway with
+   ``--start-instance`` (``server``: the gateway and its ``shared``
+   executor, each a process of its own, answer ``/translate/json``,
+   ``/translate/bytes/stream`` and ``/translate/batch/json``); one page
+   through the ws worker (``ws``);
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -170,7 +182,8 @@ def phase_card():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     missing = []
-    for mod in ('cv2', 'PIL', 'pydantic', 'networkx', 'numpy'):
+    for mod in ('cv2', 'PIL', 'pydantic', 'networkx', 'numpy', 'aiohttp',
+                'websockets'):
         try:
             __import__(mod)
         except ImportError as e:
@@ -422,7 +435,6 @@ def check_lama(results):
     plain versions run in true f32: matmuls without TF32 (the port's
     setting, device.py), cuDNN without TF32 (conv2d_stream_ref switches it
     off for its call; here for the generator's other convs too)."""
-    from manga_image_translator_tpu_torch.models import lama
     from manga_image_translator_tpu_torch.ops import conv_stream as k5
     from manga_image_translator_tpu_torch.ops import fourier_unit as k4
     require(not torch.backends.cuda.matmul.allow_tf32,
@@ -474,13 +486,20 @@ def check_lama(results):
             require(rel <= tol, f'conv_stream {name} {in_dt}: rel err {rel}')
             k5_err = max(k5_err, err)
     results['conv_stream']['max_abs_err'] = k5_err
+    check_generator((1, 512, 512), 'crop_512')
 
-    # the whole generator on a 512² crop in f32: kernels against the
-    # plain routes with the same weights, 1e-3 absolute on the output.
-    # Random weights grow the trunk through 18 residual blocks until the
-    # sigmoid saturates (logits ~1e8, every output 0 or 1), which would
-    # hide any difference: here each block's second FFC is scaled by 0.1
-    # (its ReLU'd branch with it), which keeps the output in (0, 1).
+
+def check_generator(shape, at):
+    """The whole generator on an (n, h, w) input in f32: kernels against
+    the plain routes with the same weights, 1e-3 absolute on the output.
+    Random weights grow the trunk through 18 residual blocks until the
+    sigmoid saturates (logits ~1e8, every output 0 or 1), which would hide
+    any difference: here each block's second FFC is scaled by 0.1 (its
+    ReLU'd branch with it), which keeps the output in (0, 1)."""
+    from manga_image_translator_tpu_torch.models import lama
+    from manga_image_translator_tpu_torch.ops import conv_stream as k5
+    from manga_image_translator_tpu_torch.ops import fourier_unit as k4
+    n, h, w = shape
     model = copy.deepcopy(lama_model())
     with torch.no_grad():
         for i in range(LAMA_BLOCKS):
@@ -491,8 +510,8 @@ def check_lama(results):
                 if conv.bias is not None:
                     conv.bias.mul_(0.1)
     g = torch.Generator(device='cuda').manual_seed(5)
-    img = torch.rand((1, 512, 512, 3), generator=g, device='cuda')
-    mask = (torch.rand((1, 512, 512, 1), generator=g, device='cuda')
+    img = torch.rand((n, h, w, 3), generator=g, device='cuda')
+    mask = (torch.rand((n, h, w, 1), generator=g, device='cuda')
             < 0.3).float()
     img = img * (1 - mask)
     tf32 = torch.backends.cudnn.allow_tf32
@@ -510,13 +529,16 @@ def check_lama(results):
         torch.backends.cudnn.allow_tf32 = tf32
     err = float((got - ref).abs().max())
     unsaturated = float(((ref > 0.01) & (ref < 0.99)).float().mean())
-    emit({'phase': 'check', 'kernel': 'lama_generator', 'blocks': LAMA_BLOCKS,
+    emit({'phase': 'check', 'kernel': 'lama_generator', 'at': at,
+          'blocks': LAMA_BLOCKS,
           'shape': list(img.shape), 'dtype': 'float32', 'max_abs_err': err,
           'output_range': [float(ref.min()), float(ref.max())],
           'unsaturated_share': unsaturated, 'tol': 1e-3})
     require(unsaturated > 0.5, f'LaMa generator output saturated '
             f'({unsaturated} of values in (0.01, 0.99))')
-    require(err <= 1e-3, f'LaMa generator: kernels vs plain {err}')
+    require(err <= 1e-3, f'LaMa generator at {at}: kernels vs plain {err}')
+    del model, got, ref
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -886,16 +908,16 @@ def phase_translate(extra):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def make_pages(page_dir):
-    """Two synthetic pages with black text lines on white; returns the text
-    boxes of every page."""
+def make_pages(page_dir, n=2):
+    """``n`` synthetic pages with black text lines on white; returns the
+    text boxes of every page."""
     import cv2
     import numpy as np
     os.makedirs(page_dir, exist_ok=True)
     boxes = {}
     words = ['HELLO WORLD', 'MANGA PAGE', 'TRANSLATE ME', 'SPEECH BUBBLE',
              'OCR LINE', 'GPU PORT']
-    for p in range(2):
+    for p in range(n):
         img = np.full((PAGE_H, PAGE_W, 3), 255, np.uint8)
         quads = []
         for i in range(LINES_PER_PAGE):
@@ -917,6 +939,35 @@ def make_pages(page_dir):
     return boxes
 
 
+def stroke_mask(img_rgb):
+    """The page's dark strokes, dilated: the raw text mask the known-box
+    passes give mask refinement (the random DBNet's mask covers the page)."""
+    import cv2
+    import numpy as np
+    gray = cv2.cvtColor(img_rgb, cv2.COLOR_RGB2GRAY)
+    return cv2.dilate(((gray < 128) * 255).astype(np.uint8),
+                      np.ones((5, 5), np.uint8))
+
+
+def render_boxes(ctx, config):
+    """Where the renderer may draw: the bounding rects of the translated
+    regions' font-size adjusted boxes, computed as rendering.dispatch does,
+    on copies (the resize sets each region's font size). Call it before
+    rendering."""
+    import cv2
+    import numpy as np
+    from manga_image_translator_tpu_torch import rendering
+    drawn = [r for r in ctx.text_regions if r.translation]
+    boxes = np.zeros(ctx.img_inpainted.shape[:2], bool)
+    for dst in rendering.resize_regions_to_font_size(
+            ctx.img_inpainted, copy.deepcopy(drawn), config.render.font_size,
+            config.render.font_size_offset, config.render.font_size_minimum):
+        x, y, w, h = cv2.boundingRect(dst.astype(np.int32))
+        x, y = max(x, 0), max(y, 0)
+        boxes[y:y + h, x:x + w] = True
+    return boxes
+
+
 async def _known_quads_pass(translator, config, page_path, quads, decodes):
     """OCR + merge + translate + mask refinement + inpainting + rendering
     through the orchestrator's stage runners on the page's known text boxes
@@ -927,8 +978,7 @@ async def _known_quads_pass(translator, config, page_path, quads, decodes):
     import cv2
     import numpy as np
     from PIL import Image
-    from manga_image_translator_tpu_torch import (inpainting, rendering,
-                                                  translators)
+    from manga_image_translator_tpu_torch import inpainting, translators
     from manga_image_translator_tpu_torch.utils.generic import (Context,
                                                                 load_image)
     from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
@@ -936,9 +986,7 @@ async def _known_quads_pass(translator, config, page_path, quads, decodes):
     ctx.input = Image.open(page_path)
     ctx.img_rgb, ctx.img_alpha = load_image(ctx.input)
     ctx.textlines = [Quadrilateral(np.array(q), '', 1.0) for q in quads]
-    gray = cv2.cvtColor(ctx.img_rgb, cv2.COLOR_RGB2GRAY)
-    ctx.mask_raw = cv2.dilate(((gray < 128) * 255).astype(np.uint8),
-                              np.ones((5, 5), np.uint8))
+    ctx.mask_raw = stroke_mask(ctx.img_rgb)
     ms = {}
 
     async def timed(name, coro_fn):
@@ -978,13 +1026,7 @@ async def _known_quads_pass(translator, config, page_path, quads, decodes):
     inside = ctx.mask >= 127
     inpainted = (ctx.img_inpainted != ctx.img_rgb).any(-1)
     drawn = [r for r in ctx.text_regions if r.translation]
-    boxes = np.zeros(inside.shape, bool)
-    for dst in rendering.resize_regions_to_font_size(
-            ctx.img_inpainted, copy.deepcopy(drawn), config.render.font_size,
-            config.render.font_size_offset, config.render.font_size_minimum):
-        x, y, w, h = cv2.boundingRect(dst.astype(np.int32))
-        x, y = max(x, 0), max(y, 0)
-        boxes[y:y + h, x:x + w] = True
+    boxes = render_boxes(ctx, config)
     ctx.img_rendered = await timed(
         'render', lambda: translator._run_text_rendering(config, ctx))
     rendered = (ctx.img_rendered != ctx.img_inpainted).any(-1)
@@ -1149,6 +1191,540 @@ def phase_cli(page_dir, cfg_path):
           'pages_written': written})
 
 
+BATCH_PAGES = 3
+
+
+class _Failures:
+    """Collects the orchestrator's warnings and errors (a batched pre-pass
+    that fell back to the per-page path logs one) while installed."""
+
+    def __init__(self, logger):
+        import logging
+        self.logger = logger
+        self.records = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = lambda record: self.records.append(record.getMessage())
+        self.handler = handler
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _letterbox(rgbs, size):
+    """The batched detector's canvases: each page resized to fit a
+    ``size`` square, top left, zeros elsewhere."""
+    import cv2
+    import numpy as np
+    canvases = np.zeros((len(rgbs), size, size, 3), np.uint8)
+    for i, rgb in enumerate(rgbs):
+        h, w = rgb.shape[:2]
+        ratio = size / max(h, w)
+        th, tw = int(round(h * ratio)), int(round(w * ratio))
+        canvases[i, :th, :tw] = cv2.resize(rgb, (tw, th),
+                                           interpolation=cv2.INTER_LINEAR)
+    return canvases
+
+
+def phase_batch(cfg_path):
+    """``translate_batch`` on the card with the smoke's default ``Config``
+    on three synthetic pages, the launch counters set to 0 just before and
+    read just after. The random DBNet finds no text, so the detection
+    pre-pass is wrapped here: the real one runs (its K1 launch and DBNet
+    forward), then each page's line list and raw mask become its known
+    boxes and stroke mask. Pooled OCR then reads 54 lines in chunks of 24,
+    sugoi translates them in one batched call, the inpainter takes the
+    three pages' crops in shared buckets and each page renders. Fails if a
+    pre-pass left a page to the per-page path, if a kernel did not launch,
+    if the pooled texts differ from the per-page OCR's on the same boxes,
+    or if inpainting or rendering changed a pixel outside the mask or the
+    text boxes."""
+    import numpy as np
+    from PIL import Image
+    from manga_image_translator_tpu_torch import (inpainting, ocr,
+                                                  manga_translator as mt)
+    from manga_image_translator_tpu_torch.config import Inpainter, Ocr
+    from manga_image_translator_tpu_torch.mode.local import load_config_file
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    from manga_image_translator_tpu_torch.utils.generic import (Context,
+                                                                load_image)
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+
+    page_dir = os.path.join(WORK, 'batch_pages')
+    boxes = make_pages(page_dir, BATCH_PAGES)
+    names = sorted(boxes)
+    config = load_config_file(cfg_path)
+    images = [Image.open(os.path.join(page_dir, n)) for n in names]
+    rgbs = [load_image(im)[0] for im in images]
+
+    def known(i):
+        return [Quadrilateral(np.array(q), '', 1.0) for q in boxes[names[i]]]
+
+    translator = mt.MangaTranslator({'batch_size': BATCH_PAGES})
+    require(translator.device == 'cuda',
+            f'translator runs on {translator.device}, not cuda')
+    rec = ocr.get_ocr(Ocr.ocr48px)
+    inp = inpainting.get_inpainter(Inpainter.lama_large)
+    stage_ms = collections.defaultdict(float)
+    served, per_page = {}, collections.Counter()
+    detected, render_boxes_of = [], {}
+
+    def timed(name, fn):
+        async def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = await fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage_ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def counted(name, fn):
+        async def run(*args, **kw):
+            per_page[name] += 1
+            return await fn(*args, **kw)
+        return run
+
+    predetect = translator._batch_predetect
+
+    async def predetect_known(images_with_configs, batch_size):
+        out = await predetect(images_with_configs, batch_size)
+        served['detect'] = sorted(out)
+        for i in sorted(out):
+            detected.append(len(out[i][0]))
+            out[i] = (known(i), stroke_mask(rgbs[i]), out[i][2])
+        return out
+
+    preocr = translator._batch_preocr
+
+    async def preocr_served(images_with_configs, predetected):
+        out = await preocr(images_with_configs, predetected)
+        served['ocr'] = sorted(out)
+        return out
+
+    infer_batch = inp.infer_batch
+
+    async def inpaint_served(imgs, masks, cfg, size, *args, **kw):
+        served['inpaint'] = len(imgs)
+        return await infer_batch(imgs, masks, cfg, size, *args, **kw)
+
+    render = translator._run_text_rendering
+
+    async def render_boxed(cfg, ctx):
+        render_boxes_of[id(ctx)] = render_boxes(ctx, cfg)
+        return await render(cfg, ctx)
+
+    translator._batch_predetect = timed('detect', predetect_known)
+    translator._batch_preocr = timed('ocr', preocr_served)
+    translator._batch_translate_contexts = timed(
+        'translate', translator._batch_translate_contexts)
+    translator._run_textline_merge = timed('textline_merge',
+                                           translator._run_textline_merge)
+    translator._run_mask_refinement = timed('mask_refine',
+                                            translator._run_mask_refinement)
+    translator._run_text_rendering = timed('render', render_boxed)
+    inp.infer_batch = timed('inpaint', inpaint_served)
+    translator._run_detection = counted('detect', translator._run_detection)
+    translator._run_inpainting = counted('inpaint', translator._run_inpainting)
+    rec._infer = counted('ocr', rec._infer)
+    two_tier = rec._two_tier_decode
+    chunks = collections.Counter()
+
+    def chunk_counted(memory):
+        chunks['now'] += 1
+        return two_tier(memory)
+    rec._two_tier_decode = chunk_counted
+    decodes = []
+    forwards_before = len(inp.forwards)
+    try:
+        with _Failures(mt.logger) as failures, recording_decodes(decodes):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            contexts = asyncio.run(translator.translate_batch(
+                [(im, config) for im in images]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = cuda_build.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        chunks_pooled = chunks.pop('now', 0)
+        fallthrough = dict(per_page)
+        forwards = [tuple(f) for f in inp.forwards[forwards_before:]]
+
+        def read(pooled):
+            """Each page's (box, text) pairs on the known boxes, through
+            ``_run_ocr`` as the batch calls it: per page, or given the
+            pooled OCR's lines (not counted)."""
+            pre = (asyncio.run(rec.infer_pooled(
+                rgbs, [known(i) for i in range(BATCH_PAGES)], config.ocr))
+                if pooled else None)
+            out = []
+            for i in range(BATCH_PAGES):
+                ctx = Context()
+                ctx.img_rgb = rgbs[i]
+                ctx.textlines = known(i)
+                if pre is not None:
+                    ctx.pre_ocred = pre[i]
+                out.append([(q.pts.tolist(), q.text) for q in
+                            asyncio.run(translator._run_ocr(config, ctx))])
+            return out
+
+        def lines_differ(a, b):
+            return sum(x != y for pa, pb in zip(a, b) for x, y in
+                       zip(pa, pb)) + sum(abs(len(pa) - len(pb))
+                                          for pa, pb in zip(a, b))
+
+        per_page_texts = read(False)
+        chunks_per_page = chunks.pop('now', 0)
+        batch_texts = [[(q.pts.tolist(), q.text) for q in ctx.textlines]
+                       for ctx in contexts]
+        # In bf16 the backbone's cuDNN convolutions round differently at
+        # another batch size or width bucket, and random weights' 255-token
+        # beams turn the least difference into other characters; in f32
+        # without TF32 the memory of a crop does not depend on the crops
+        # beside it: there the pooled texts must equal the per-page ones.
+        switch = os.environ.get('MIT_TPU_OCR_BF16_BACKBONE')
+        tf32 = torch.backends.cudnn.allow_tf32
+        os.environ['MIT_TPU_OCR_BF16_BACKBONE'] = '0'
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            exact = lines_differ(read(True), read(False))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+            if switch is None:
+                os.environ.pop('MIT_TPU_OCR_BF16_BACKBONE')
+            else:
+                os.environ['MIT_TPU_OCR_BF16_BACKBONE'] = switch
+    finally:
+        del rec._infer, rec._two_tier_decode, inp.infer_batch
+
+    # three translate calls on the same pages and boxes, for the wall time
+    single = mt.MangaTranslator({})
+    detect = single._run_detection
+
+    async def detect_known(cfg, ctx):
+        await detect(cfg, ctx)
+        i = next(j for j, rgb in enumerate(rgbs)
+                 if rgb.shape == ctx.img_rgb.shape
+                 and np.array_equal(rgb, ctx.img_rgb))
+        return known(i), stroke_mask(rgbs[i]), None
+    single._run_detection = detect_known
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [asyncio.run(single.translate(im, config)) for im in images]
+    torch.cuda.synchronize()
+    wall_single = time.perf_counter() - t0
+
+    pages = {}
+    for name, ctx in zip(names, contexts):
+        inside = ctx.mask >= 127
+        inpainted = (ctx.img_inpainted != ctx.img_rgb).any(-1)
+        drawn = render_boxes_of.get(id(ctx))
+        rendered = (ctx.img_rendered != ctx.img_inpainted).any(-1)
+        pages[name] = {
+            'ocr_lines': len(ctx.textlines),
+            'regions': len(ctx.text_regions),
+            'mask_pixels': int(inside.sum()),
+            'inpainted_pixels_inside': int((inpainted & inside).sum()),
+            'inpainted_pixels_outside': int((inpainted & ~inside).sum()),
+            'rendered_pixels_in_boxes': (int((rendered & drawn).sum())
+                                         if drawn is not None else None),
+            'rendered_pixels_outside': (int((rendered & ~drawn).sum())
+                                        if drawn is not None else None),
+            'result_size': list(ctx.result.size)}
+    buckets = collections.Counter(forwards)
+    record = {'phase': 'batch', 'pages': BATCH_PAGES,
+              'lines': sum(len(b) for b in boxes.values()),
+              'detected_lines': detected, 'served': served,
+              'per_page_fallthrough': fallthrough,
+              'stage_ms': dict(stage_ms),
+              'ocr_chunks': {'pooled': chunks_pooled,
+                             'per_page': chunks_per_page},
+              'ocr_lines_pooled_unlike_per_page': {
+                  'bf16_backbone': lines_differ(batch_texts, per_page_texts),
+                  'f32_backbone_no_tf32': exact},
+              'lama_forwards': {f'{n}x{h}x{w}': k
+                                for (n, h, w), k in sorted(buckets.items())},
+              'sugoi_decodes': [{k: c[k] for k in ('wall_ms', 'steps')}
+                                for c in decodes],
+              'launches': counts, 'max_memory_allocated': peak,
+              'wall_s': wall, 'wall_s_three_translate_calls': wall_single,
+              'logged_failures': failures.records[:5], 'per_page': pages}
+    emit(record)
+    everything = list(range(BATCH_PAGES))
+    require(served.get('detect') == everything
+            and served.get('ocr') == everything
+            and served.get('inpaint') == BATCH_PAGES,
+            f'a batched pre-pass did not serve every page: {served}')
+    require(not fallthrough, f'pages fell through to the per-page path: '
+            f'{fallthrough}')
+    require(not failures.records, f'the batch logged failures: '
+            f'{failures.records[:3]}')
+    for name, n in counts.items():
+        require(n > 0, f'kernel {name} was not launched by the batch path')
+    require(counts['fourier_unit'] == 2 * LAMA_BLOCKS * len(forwards)
+            and counts['conv_stream'] == 2 * len(forwards),
+            f'{len(forwards)} generator forwards, launches {counts}')
+    require(len(decodes) >= 1, 'the batch decoded no translation')
+    require(exact == 0, f'{exact} lines: the pooled OCR texts differ from the '
+            f'per-page OCR in f32')
+    for name, r in pages.items():
+        require(r['ocr_lines'] == LINES_PER_PAGE,
+                f'{name}: {r["ocr_lines"]} OCR lines')
+        require(r['mask_pixels'] > 0 and r['inpainted_pixels_inside'] > 0
+                and r['inpainted_pixels_outside'] == 0,
+                f'{name}: inpainting changed {r["inpainted_pixels_inside"]} '
+                f'pixels inside the mask, {r["inpainted_pixels_outside"]} '
+                f'outside')
+        require(r['rendered_pixels_in_boxes']
+                and r['rendered_pixels_outside'] == 0,
+                f'{name}: rendering changed {r["rendered_pixels_in_boxes"]} '
+                f'pixels in the text boxes, {r["rendered_pixels_outside"]} '
+                f'outside')
+        require(r['result_size'] == [PAGE_W, PAGE_H], f'{name}: result size')
+    for ctx in singles:
+        require(ctx.result is not None and ctx.result.size == (PAGE_W, PAGE_H),
+                'a translate call of the comparison gave no page')
+    return {'launches': counts, 'forwards': forwards,
+            'canvases': _letterbox(rgbs, config.detector.detection_size)}
+
+
+def check_batch_kernels(results, batch):
+    """K1 on the batch's letterboxed canvases (one launch for the three)
+    against its plain version, at most 1 gray, and timed; the 18-block
+    generator at the largest crop bucket the batch ran, kernels against
+    the plain routes as check_lama holds it."""
+    from manga_image_translator_tpu_torch.ops import bilateral
+    canvases = torch.from_numpy(batch['canvases']).cuda()
+    got = bilateral.bilateral_filter_batch(canvases)
+    ref = bilateral.bilateral_filter_ref(canvases)
+    torch.cuda.synchronize()
+    err = int((got.int() - ref.int()).abs().max())
+    emit({'phase': 'check', 'kernel': 'bilateral', 'at': 'batch_canvases',
+          'shape': list(canvases.shape), 'max_abs_err': err, 'tol': 1})
+    require(err <= 1, f'bilateral at the batch canvases: {err} gray > 1')
+    results['bilateral']['max_abs_err'] = max(
+        results['bilateral']['max_abs_err'], err)
+    n, h, w = canvases.shape[:3]
+    taps = len(bilateral.window_offsets(8)) - 1
+    pixels = n * h * w
+    r = {'shape': list(canvases.shape), 'data': 'letterboxed pages'}
+    r['ms'] = cuda_ms(lambda: bilateral.bilateral_filter_batch(canvases))
+    r['plain_ms'] = cuda_ms(lambda: bilateral.bilateral_filter_ref(canvases),
+                            iters=5, warmup=1)
+    r['library_ms'] = None
+    r['bound_ms'], r['bound_by'] = bound_ms(
+        2 * pixels * 3, pixels * (taps * 7 + taps // 2 * 6 + 12),
+        F32_OPS_PER_S)
+    results['bilateral']['at_batch_canvases'] = r
+    largest = max(batch['forwards'], key=lambda f: f[0] * f[1] * f[2])
+    check_generator(largest, 'batch_largest_bucket')
+
+
+def _free_port_pair():
+    """A free port whose successor is free too (the gateway's executor
+    listens on the gateway's port + 1)."""
+    import socket
+    for _ in range(100):
+        with socket.socket() as a:
+            a.bind(('127.0.0.1', 0))
+            port = a.getsockname()[1]
+        try:
+            with socket.socket() as b:
+                b.bind(('127.0.0.1', port + 1))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError('no free pair of ports')
+
+
+def _decode_wire(payload: bytes):
+    """The translations of a binary response (the layout of
+    examples/response.cpp); fails unless it parses to its last byte."""
+    import struct
+    (count,), off = struct.unpack_from('<i', payload, 0), 4
+    texts = []
+    for _ in range(count):
+        off += 16 + 1 + 8 + 6
+        (n_text,) = struct.unpack_from('<i', payload, off)
+        off += 4
+        text = {}
+        for _ in range(n_text):
+            (kl,) = struct.unpack_from('<I', payload, off)
+            key = payload[off + 4:off + 4 + kl].decode()
+            off += 4 + kl
+            (vl,) = struct.unpack_from('<I', payload, off)
+            text[key] = payload[off + 4:off + 4 + vl].decode()
+            off += 4 + vl
+        (bl,) = struct.unpack_from('<I', payload, off)
+        off += 4 + bl
+        texts.append(text)
+    require(off == len(payload), f'binary response: {len(payload) - off} '
+            f'bytes after the last translation')
+    return texts
+
+
+def phase_server(page_dir, cfg_path):
+    """The gateway with ``--start-instance``, each a process of its own:
+    ``python -m manga_image_translator_tpu_torch.server.main`` spawns
+    ``python -m manga_image_translator_tpu_torch shared`` (on the card).
+    One page to ``/translate/json``, one to ``/translate/bytes/stream``
+    (its frames decoded), two to ``/translate/batch/json``; then SIGTERM to
+    the gateway, which stops its executor. Fails on a status other than
+    200, a response that does not decode, a non-zero exit or a traceback in
+    either process's output."""
+    import base64
+    import signal
+    import urllib.request
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    pages = [base64.b64encode(open(os.path.join(page_dir, n), 'rb').read())
+             .decode() for n in sorted(os.listdir(page_dir))]
+    port = _free_port_pair()
+    nonce = os.urandom(8).hex()
+    log_path = os.path.join(OUT, 'server.log')
+    env = dict(os.environ, PYTHONPATH=ROOT, MIT_TPU_ALLOW_RANDOM_WEIGHTS='1')
+    t0 = time.perf_counter()
+    log = open(log_path, 'w')
+    gateway = subprocess.Popen(
+        [sys.executable, '-m', 'manga_image_translator_tpu_torch.server.main',
+         '--host', '127.0.0.1', '--port', str(port), '--nonce', nonce,
+         '--start-instance'], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return json.loads(r.read())
+
+    def post(path, body, timeout=600):
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{port}{path}', data=json.dumps(body).encode(),
+            headers={'Content-Type': 'application/json'})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            require(r.status == 200, f'{path}: status {r.status}')
+            data = r.read()
+        ms[path] = (time.perf_counter() - t) * 1e3
+        return data
+
+    ms = {}
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            require(gateway.poll() is None, 'the gateway exited at start '
+                    f'(code {gateway.returncode}):\n'
+                    + open(log_path).read()[-3000:])
+            require(time.monotonic() < deadline, 'the gateway or its '
+                    'executor did not come up in 300 s:\n'
+                    + open(log_path).read()[-3000:])
+            try:
+                get(f'http://127.0.0.1:{port}/queue-size')
+                get(f'http://127.0.0.1:{port + 1}/is_locked')
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        one = json.loads(post('/translate/json',
+                              {'image': pages[0], 'config': cfg}))
+        require(isinstance(one.get('translations'), list),
+                f'/translate/json: {str(one)[:300]}')
+        raw = post('/translate/bytes/stream', {'image': pages[1],
+                                               'config': cfg})
+        frames, i = [], 0
+        while i < len(raw):
+            n = int.from_bytes(raw[i + 1:i + 5], 'big')
+            frames.append((raw[i], raw[i + 5:i + 5 + n]))
+            i += 5 + n
+        require(i == len(raw) and frames and frames[-1][0] == 0,
+                f'stream frames: {[s for s, _ in frames]}')
+        progress = [p.decode() for s, p in frames if s == 1]
+        require('detection' in progress, f'stream progress: {progress}')
+        streamed = _decode_wire(frames[-1][1])
+        batch = json.loads(post('/translate/batch/json', {'images': [
+            {'image': p, 'config': cfg} for p in pages[:2]]}))
+        require(isinstance(batch, list) and len(batch) == 2 and all(
+            isinstance(r.get('translations'), list) for r in batch),
+            f'/translate/batch/json: {str(batch)[:300]}')
+        gateway.send_signal(signal.SIGTERM)
+        rc = gateway.wait(timeout=120)
+    finally:
+        if gateway.poll() is None:
+            os.killpg(gateway.pid, signal.SIGKILL)
+            gateway.wait()
+        log.close()
+    out = open(log_path).read()
+    emit({'phase': 'server', 'port': port, 'up_s': up_s, 'request_ms': ms,
+          'translations': {'json': len(one['translations']),
+                           'stream': len(streamed),
+                           'batch': [len(r['translations']) for r in batch]},
+          'stream_frames': len(frames), 'progress': progress[:12],
+          'exit_code': rc, 'seconds': time.perf_counter() - t0})
+    require(rc == 0, f'the gateway exited with code {rc}:\n{out[-3000:]}')
+    require('Traceback' not in out,
+            f'a traceback in the server output:\n{out[-3000:]}')
+
+
+def phase_ws(page_dir, cfg_path):
+    """One page through the port's ws worker (``MangaTranslatorWS`` on the
+    card, in this process) against a local websockets server: status
+    frames, then a result frame holding the page."""
+    import base64
+    import io
+    import websockets
+    from PIL import Image
+    from manga_image_translator_tpu_torch.mode.ws import MangaTranslatorWS
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    name = sorted(os.listdir(page_dir))[0]
+    page = base64.b64encode(open(os.path.join(page_dir, name), 'rb').read()
+                            ).decode()
+    received = []
+
+    async def run():
+        done = asyncio.Event()
+
+        async def handler(ws):
+            await ws.send(json.dumps({'type': 'new_task', 'id': 'smoke-1',
+                                      'image_b64': page, 'config': cfg}))
+            async for raw in ws:
+                received.append(json.loads(raw))
+                if received[-1]['type'] in ('result', 'error'):
+                    done.set()
+                    return
+
+        async with websockets.serve(handler, '127.0.0.1', 0,
+                                    max_size=1 << 30) as server:
+            port = server.sockets[0].getsockname()[1]
+            worker = MangaTranslatorWS({'ws_url': f'ws://127.0.0.1:{port}',
+                                        'ws_secret': 'smoke'})
+            require(worker.device == 'cuda', f'ws worker on {worker.device}')
+            task = asyncio.create_task(worker.listen())
+            try:
+                await asyncio.wait_for(done.wait(), timeout=600)
+            finally:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    types = [m['type'] for m in received]
+    require(types and types[-1] == 'result',
+            f'ws frames: {types}; last: {str(received[-1:])[:300]}')
+    out = Image.open(io.BytesIO(base64.b64decode(received[-1]['image_b64'])))
+    emit({'phase': 'ws', 'frames': len(received),
+          'statuses': [m['status'] for m in received
+                       if m['type'] == 'status'][:12],
+          'result_size': list(out.size), 'seconds': time.perf_counter() - t0})
+    require(out.size == (PAGE_W, PAGE_H), f'ws result size {out.size}')
+
+
 def phase_breakdown():
     """Where the detect stage's time goes on one pipeline page: the K1
     prefilter, the resize + pad, the DBNet forward (each device-timed) and
@@ -1251,7 +1827,7 @@ def _library_decode_step(step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len,
     return x
 
 
-def phase_times(results, forwards):
+def phase_times(results, forwards, batch_forwards=()):
     from manga_image_translator_tpu_torch.ops import bilateral, charhead
     from manga_image_translator_tpu_torch.ops import decode_step as dops
 
@@ -1347,7 +1923,7 @@ def phase_times(results, forwards):
         nbytes, 2 * n * 320 * 320 + 2 * n * v * 320, BF16_OPS_PER_S)
     r['shape'] = {'n': n, 'vocab': v, 'k': 5}
 
-    times_lama(results, forwards)
+    times_lama(results, forwards, batch_forwards)
 
     def times(r):       # the ms numbers, those at other inputs by input
         return {k: (times(v) if k.startswith('at_') else v)
@@ -1356,15 +1932,20 @@ def phase_times(results, forwards):
                                         for k, r in results.items()}})
 
 
-def lama_shapes(forwards):
+def lama_shapes(forwards, batch_forwards=()):
     """(N, H, W) of the generator forward the pipeline ran most (ties to
-    the most pixels), and of one 1024² crop."""
+    the most pixels), of one 1024² crop and of the largest bucket the batch
+    ran."""
     seen = collections.Counter(tuple(f) for f in forwards)
     most = max(seen, key=lambda f: (seen[f], f[0] * f[1] * f[2]))
-    return {'pipeline_most': most, 'crop_1024': (1, CROP, CROP)}
+    shapes = {'pipeline_most': most, 'crop_1024': (1, CROP, CROP)}
+    if batch_forwards:
+        shapes['batch_largest'] = tuple(max(
+            batch_forwards, key=lambda f: f[0] * f[1] * f[2]))
+    return shapes
 
 
-def times_lama(results, forwards):
+def times_lama(results, forwards, batch_forwards=()):
     """K4 and K5 at the main path's types (bf16 in; K4 out bf16, K5's stem
     bf16 and final f32) for one generator forward at each of
     ``lama_shapes``: K4 per call, K5 its stem and final convs summed. The
@@ -1392,7 +1973,7 @@ def times_lama(results, forwards):
           'conv_stream': k5_host})
     results['fourier_unit']['host_us_per_call'] = k4_host
     results['conv_stream']['host_us_per_call'] = k5_host
-    for at, (n, h, w) in lama_shapes(forwards).items():
+    for at, (n, h, w) in lama_shapes(forwards, batch_forwards).items():
         shape = (n, h // 8, w // 8, FU_C)
         x, w_spec, b_spec = k4_inputs(shape)
         x = x.to(bf16)
@@ -1880,8 +2461,12 @@ def main(argv=None) -> int:
     counts, forwards, page_dir, cfg_path, extra = phase_pipeline()
     decode = phase_translate(extra)
     phase_cli(page_dir, cfg_path)
+    batch = phase_batch(cfg_path)
+    check_batch_kernels(results, batch)
+    phase_server(page_dir, cfg_path)
+    phase_ws(page_dir, cfg_path)
     phase_breakdown()
-    phase_times(results, forwards)
+    phase_times(results, forwards, batch['forwards'])
     per_call = phase_trace()
     phase_beam_step()
     phase_ocr_page()
@@ -1893,6 +2478,7 @@ def main(argv=None) -> int:
         kernels.append({
             'name': name, 'route': route, 'source': source,
             'replaces': replaces, 'launches': counts[name],
+            'launches_batch': batch['launches'][name],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

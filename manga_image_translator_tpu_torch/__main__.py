@@ -1,5 +1,5 @@
 """CLI entry point (contract: reference manga_translator/__main__.py —
-dispatch to the local and config-help modes)."""
+dispatch to local/ws/shared/config-help modes)."""
 from __future__ import annotations
 
 import asyncio
@@ -20,6 +20,14 @@ async def dispatch(args):
         translator = MangaTranslatorLocal(args_dict)
         dest = args_dict.get('dest', '')
         await translator.translate_path(args_dict['input'], dest, args_dict)
+    elif args.mode == 'shared':
+        from .mode.share import MangaShare
+        share = MangaShare(args_dict)
+        await share.listen(args_dict)
+    elif args.mode == 'ws':
+        from .mode.ws import MangaTranslatorWS
+        translator = MangaTranslatorWS(args_dict)
+        await translator.listen(args_dict)
     elif args.mode == 'config-help':
         from .config import Config
         print(json.dumps(Config.model_json_schema(), indent=2))

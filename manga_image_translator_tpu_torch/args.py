@@ -1,7 +1,6 @@
 """CLI argument parser (contract: reference manga_translator/args.py — same
-flags). The port runs on the GPU by default: ``--use-gpu`` is accepted and
-changes nothing. Sub-modes: local and config-help; ws and shared wait for a
-later slice of the port (ROADMAP A.17)."""
+flags, same four sub-modes local/ws/shared/config-help). The port runs on
+the GPU by default: ``--use-gpu`` is accepted and changes nothing."""
 from __future__ import annotations
 
 import argparse
@@ -149,6 +148,21 @@ parser_batch.add_argument('--save-quality', default=100, type=int,
                           help='Quality of saved JPEG image, 0-100')
 parser_batch.add_argument('--config-file', default=None, type=str,
                           help='path to the config file')
+
+parser_ws = subparsers.add_parser('ws', help='Run in WebSocket mode')
+parser_ws.add_argument('--host', default='127.0.0.1', type=str)
+parser_ws.add_argument('--port', default=5003, type=int)
+parser_ws.add_argument('--nonce', default=os.getenv('MT_WEB_NONCE') or None,
+                       type=str)
+parser_ws.add_argument('--ws-url', default='ws://localhost:5000', type=str)
+
+parser_api = subparsers.add_parser('shared', help='Run in API mode')
+parser_api.add_argument('--host', default='127.0.0.1', type=str)
+parser_api.add_argument('--port', default=5003, type=int)
+parser_api.add_argument('--nonce', default=os.getenv('MT_WEB_NONCE') or None,
+                        type=str)
+parser_api.add_argument('--report', default=None, type=str,
+                        help='reports to server to register instance')
 
 subparsers.add_parser('config-help',
                       help='Print help information for config file')

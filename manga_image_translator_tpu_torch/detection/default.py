@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``detection/default.py`` (reference
 bilateral prefilter, pad to a multiple of 256, webtoon rearrange,
 SegDetectorRepresenter postprocess). The bilateral prefilter is kernel K1
 (``ops.bilateral``); resize, network and sigmoid are plain PyTorch; contour
-extraction runs on the host.
+extraction runs on the host. Batch mode (``infer_batch_dispatch`` /
+``infer_batch_collect``) runs one K1 launch and one forward per chunk of
+letterboxed pages.
 """
 from __future__ import annotations
 
@@ -120,6 +122,69 @@ class DefaultDetector(OfflineDetector):
             mask_resized = mask_resized[:, :-pad_w]
         raw_mask = np.clip(mask_resized * 255, 0, 255).astype(np.uint8)
         return textlines, raw_mask, None
+
+    # -- batched page path -------------------------------------------------
+    async def infer_batch(self, images, detect_size: int,
+                          text_threshold: float, box_threshold: float,
+                          unclip_ratio: float, verbose: bool = False):
+        """Detect over N pages in one network forward: each page is
+        letterboxed top-left into a shared ``detect_size`` square."""
+        handle = await self.infer_batch_dispatch(images, detect_size)
+        return self.infer_batch_collect(handle, detect_size, text_threshold,
+                                        box_threshold, unclip_ratio)
+
+    async def infer_batch_dispatch(self, images, detect_size: int):
+        """Enqueue a page batch's device work (batched K1 + one DBNet
+        forward) without waiting for it. Returns the handle that
+        ``infer_batch_collect`` takes; the maps stay device tensors, so the
+        caller can run the previous chunk's host postprocess meanwhile.
+
+        Unlike the single-page path, which filters the original page and
+        then resizes, the batch filters the letterboxed canvases, so that
+        every page shares one shape."""
+        if not self.is_loaded:
+            await self.load()
+        n = len(images)
+        canvases = np.zeros((n, detect_size, detect_size, 3), np.uint8)
+        metas = []
+        for i, image in enumerate(images):
+            im_h, im_w = image.shape[:2]
+            ratio = detect_size / max(im_h, im_w)
+            th, tw = int(round(im_h * ratio)), int(round(im_w * ratio))
+            canvases[i, :th, :tw] = cv2.resize(
+                image, (tw, th), interpolation=cv2.INTER_LINEAR)
+            metas.append((ratio, th, tw))
+        prob, mask = _detect_maps(self.model,
+                                  torch.from_numpy(canvases).to(self.device))
+        return {'metas': metas, 'prob': prob, 'mask': mask}
+
+    def infer_batch_collect(self, handle, detect_size: int,
+                            text_threshold: float, box_threshold: float,
+                            unclip_ratio: float):
+        """Move a dispatched batch's maps to the host and run the DB
+        postprocess on each page."""
+        prob_np = handle['prob'].float().cpu().numpy()
+        mask_np = handle['mask'].float().cpu().numpy()
+        results = []
+        det = DBPostprocess(text_threshold, box_threshold,
+                            unclip_ratio=unclip_ratio)
+        for i, (ratio, th, tw) in enumerate(handle['metas']):
+            boxes, scores = det(prob_np[i], detect_size, detect_size)
+            if boxes.shape[0]:
+                keep = boxes.reshape(boxes.shape[0], -1).sum(axis=1) > 0
+                polys = (boxes[keep].astype(np.float64)
+                         / ratio).astype(np.int64)
+                scores = scores[keep]
+            else:
+                polys = boxes
+            textlines = [Quadrilateral(pts.astype(int), '', float(s))
+                         for pts, s in zip(polys, scores)]
+            textlines = [q for q in textlines if q.area > 16]
+            m = cv2.resize(mask_np[i], (detect_size, detect_size),
+                           interpolation=cv2.INTER_LINEAR)[:th, :tw]
+            raw_mask = np.clip(m * 255, 0, 255).astype(np.uint8)
+            results.append((textlines, raw_mask, None))
+        return results
 
     def _forward_single(self, image: np.ndarray, detect_size: int):
         im_h, im_w = image.shape[:2]

@@ -12,13 +12,17 @@ Port notes: the stage runners dispatch into the port's own registries;
 detection, OCR, mask refinement and LaMa inpainting run on the CUDA card
 (or the CPU when a Python caller passes ``use_gpu=False``); rendering is
 host code. Stage times are taken with the device synchronised at each
-stage edge. Batch mode (``translate_batch`` and its pre-passes),
-colorization and upscaling wait for later slices of the port (ROADMAP
-A.6, A.12).
+stage edge. Batch mode (``translate_batch``) detects same-config pages in
+shared forwards (one K1 launch and one DBNet forward per chunk), pools
+their text lines into shared OCR chunks, translates them in one batched
+translator call and inpaints same-config pages' crops in shared buckets;
+a page that a pre-pass cannot take runs the per-page path. Colorization
+and upscaling wait for a later slice of the port (ROADMAP A.12).
 """
 from __future__ import annotations
 
 import asyncio
+import functools
 import os
 import re
 import time
@@ -29,7 +33,8 @@ import cv2
 import numpy as np
 from PIL import Image
 
-from .config import Colorizer, Config, Renderer, Translator
+from .config import (Colorizer, Config, Ocr as OcrEnum, Renderer,
+                     Translator)
 from .utils.generic import Context, dump_image, is_valuable_text, load_image
 from .utils.log import get_logger
 from .utils.sort import sort_regions, visualize_textblocks
@@ -216,7 +221,10 @@ class MangaTranslator:
                 f'-{config.translator.translator.value}')
         from .utils.profiling import StageTimer, device_trace
         from .device import synchronize
-        ctx.timer = StageTimer(sync=lambda: synchronize(self.device))
+        # a partial, not a closure: the Context pickles (the shared
+        # executor returns it)
+        ctx.timer = StageTimer(sync=functools.partial(synchronize,
+                                                      self.device))
         with device_trace('translate'):
             ctx = await self._translate(config, ctx)
         ctx.stage_durations = ctx.timer.report()
@@ -447,9 +455,14 @@ class MangaTranslator:
         if self.verbose:
             os.environ['MANGA_OCR_RESULT_DIR'] = self._result_path('ocrs')
         try:
-            textlines = await ocr.dispatch(config.ocr.ocr, ctx.img_rgb,
-                                           ctx.textlines, config.ocr,
-                                           self.device, self.verbose)
+            if ctx.get('pre_ocred') is not None:
+                # the pooled OCR pre-pass (_batch_preocr) read this page
+                textlines = ctx.pre_ocred
+                ctx.pre_ocred = None
+            else:
+                textlines = await ocr.dispatch(config.ocr.ocr, ctx.img_rgb,
+                                               ctx.textlines, config.ocr,
+                                               self.device, self.verbose)
         finally:
             if old_dir is not None:
                 os.environ['MANGA_OCR_RESULT_DIR'] = old_dir
@@ -686,6 +699,363 @@ class MangaTranslator:
             config.render.font_size_minimum,
             not config.render.no_hyphenation, None,
             config.render.line_spacing, config.render.disable_font_border)
+
+    # -- batch mode -----------------------------------------------------------
+    async def translate_batch(self, images_with_configs,
+                              batch_size: Optional[int] = None
+                              ) -> List[Context]:
+        """Batch pipeline (reference :1458-2560): phase 1 runs every page up
+        to translation, phase 2 translates all pages in one batched call (or
+        concurrently), phase 3 completes mask/inpaint/render per page."""
+        batch_size = batch_size or self.batch_size
+        contexts: List[Context] = []
+        configs: List[Config] = []
+
+        # Phase 0: runs of pages with the same plain detector config are
+        # detected in shared forwards; 0b: their lines are read in pooled
+        # OCR chunks
+        predetected = await self._batch_predetect(images_with_configs,
+                                                  batch_size)
+        preocred = await self._batch_preocr(images_with_configs,
+                                            predetected)
+
+        # Phase 1: detection/OCR/merge for all pages, with an OOM-style
+        # degradation ladder (reference :1527-1624: gc + retry, then
+        # per-page degradation with smaller sizes)
+        for page_idx, (image, config) in enumerate(images_with_configs):
+            ctx = Context()
+            ctx.input = image
+            ctx.result = None
+            if predetected.get(page_idx) is not None:
+                ctx.predetected = predetected[page_idx]
+                if page_idx in preocred:
+                    ctx.pre_ocred = preocred[page_idx]
+            try:
+                ctx = await self._translate_until_translation(config, ctx)
+            except Exception as first_err:
+                logger.error(f'batch phase-1 failure:\n'
+                             f'{traceback.format_exc()}')
+                import gc
+                gc.collect()
+                try:
+                    degraded = config.model_copy(deep=True)
+                    degraded.detector.detection_size = min(
+                        config.detector.detection_size, 1536)
+                    degraded.inpainter.inpainting_size = min(
+                        config.inpainter.inpainting_size, 1536)
+                    logger.warning('retrying page at degraded sizes')
+                    ctx = await self._translate_until_translation(degraded,
+                                                                  ctx)
+                except Exception:
+                    logger.error(f'degraded retry failed:\n'
+                                 f'{traceback.format_exc()}')
+                    if not self.ignore_errors:
+                        raise first_err
+                    ctx.text_regions = []
+            contexts.append(ctx)
+            configs.append(config)
+
+        # Phase 2: batched translation
+        if self.batch_concurrent:
+            await self._concurrent_translate_contexts(contexts, configs)
+        else:
+            await self._batch_translate_contexts(contexts, configs,
+                                                 batch_size)
+
+        # Phase 3a: same-config pages inpaint their crops in shared
+        # buckets; pages the batch cannot take fall through to 3b
+        try:
+            await self._batch_inpaint(contexts, configs)
+        except Exception:
+            logger.error(f'batched inpaint failed, falling back to '
+                         f'per-page:\n{traceback.format_exc()}')
+
+        # Phase 3b: per-page completion
+        for ctx, config in zip(contexts, configs):
+            try:
+                await self._complete_translation_pipeline(config, ctx)
+            except Exception:
+                logger.error(f'batch phase-3 failure:\n'
+                             f'{traceback.format_exc()}')
+                if not self.ignore_errors:
+                    raise
+                ctx.result = ctx.get('upscaled', ctx.input)
+        return contexts
+
+    async def _batch_inpaint(self, contexts: List[Context],
+                             configs: List[Config]):
+        """Group pages by (inpainter, size, precision), refine their masks,
+        and run each group's inpaint as one ``infer_batch`` call (crops of
+        every page pooled into shared buckets). Sets ``ctx.img_inpainted``
+        on success; the per-page completion skips inpainting for those
+        pages."""
+        from . import inpainting
+
+        groups: dict = {}
+        for i, (ctx, config) in enumerate(zip(contexts, configs)):
+            if not ctx.get('text_regions') or ctx.get('img_inpainted') \
+                    is not None:
+                continue
+            key = (config.inpainter.inpainter,
+                   config.inpainter.inpainting_size,
+                   config.inpainter.inpainting_precision)
+            groups.setdefault(key, []).append(i)
+
+        for key, indices in groups.items():
+            if len(indices) < 2:
+                continue
+            inpainter = inpainting.get_inpainter(key[0])
+            if not getattr(inpainter, 'supports_batch', False):
+                continue
+            self._mark_used('inpainting', key[0])
+
+            ready = []
+            for i in indices:
+                ctx, config = contexts[i], configs[i]
+                try:
+                    if ctx.mask is None:
+                        ctx.mask = await self._run_mask_refinement(config,
+                                                                   ctx)
+                    ready.append(i)
+                except Exception:
+                    logger.error(f'mask refinement failed for page {i}:\n'
+                                 f'{traceback.format_exc()}')
+            if len(ready) < 2:
+                continue
+
+            from .inpainting.common import OfflineInpainter
+            if isinstance(inpainter, OfflineInpainter):
+                await inpainter.load(self.device)
+            results = await inpainter.infer_batch(
+                [contexts[i].img_rgb for i in ready],
+                [contexts[i].mask for i in ready],
+                configs[ready[0]].inpainter,
+                key[1])
+            for i, out in zip(ready, results):
+                contexts[i].img_inpainted = out
+
+    async def _batch_predetect(self, images_with_configs, batch_size: int):
+        """Batched detection pre-pass. Returns {page_idx: (lines, raw, mask)}
+        for pages that were detected in a shared device forward; pages whose
+        config needs per-page handling are left out and fall back to the
+        single-page path."""
+        from . import detection
+        from .detection.common import MINIMUM_IMAGE_SIZE
+
+        def eligible(image, config: Config) -> bool:
+            d = config.detector
+            if (config.colorizer.colorizer != Colorizer.none
+                    or config.upscale.upscale_ratio
+                    or d.det_invert or d.det_gamma_correct
+                    or d.det_rotate or d.det_auto_rotate):
+                return False
+            arr = np.array(image.convert('RGB')) \
+                if not isinstance(image, np.ndarray) else image
+            if min(arr.shape[:2]) < MINIMUM_IMAGE_SIZE:
+                return False
+            return True
+
+        # group eligible page indices by (detector, detection_size, thresholds)
+        groups: dict = {}
+        for i, (image, config) in enumerate(images_with_configs):
+            if not eligible(image, config):
+                continue
+            d = config.detector
+            key = (d.detector, d.detection_size, d.text_threshold,
+                   d.box_threshold, d.unclip_ratio)
+            groups.setdefault(key, []).append(i)
+
+        out: dict = {}
+        for key, indices in groups.items():
+            if len(indices) < 2:
+                continue
+            detector = detection.get_detector(key[0])
+            if not hasattr(detector, 'infer_batch'):
+                continue
+            self._mark_used('detection', key[0])
+            await detector.load(self.device)
+
+            def _collect(pending):
+                chunk, handle = pending
+                results = detector.infer_batch_collect(
+                    handle, key[1], key[2], key[3], key[4])
+                for i, res in zip(chunk, results):
+                    lines, raw_mask, mask = res
+                    out[i] = ([q for q in lines if q.area > 1],
+                              raw_mask, mask)
+
+            # software pipeline: dispatch chunk j's device work, then run
+            # chunk j-1's host postprocess while chunk j computes
+            pending = None
+            # pages per detection chunk, independent of the translation
+            # batch; fewer at the larger canvases, which take more memory
+            default_chunk = 32 if key[1] <= 1536 else 16
+            det_chunk = max(batch_size,
+                            int(os.environ.get('MIT_TPU_DET_CHUNK',
+                                               str(default_chunk))))
+            for start in range(0, len(indices), det_chunk):
+                chunk = indices[start:start + det_chunk]
+                imgs = []
+                for i in chunk:
+                    image = images_with_configs[i][0]
+                    rgb, _ = load_image(image)
+                    imgs.append(rgb)
+                try:
+                    handle = await detector.infer_batch_dispatch(imgs, key[1])
+                    if pending is not None:
+                        _collect(pending)
+                    pending = (chunk, handle)
+                except Exception:
+                    logger.warning('batched detection failed; falling back '
+                                   f'to per-page:\n{traceback.format_exc()}')
+                    continue
+            if pending is not None:
+                try:
+                    _collect(pending)
+                except Exception:
+                    logger.warning('batched detection failed; falling back '
+                                   f'to per-page:\n{traceback.format_exc()}')
+        return out
+
+    async def _batch_preocr(self, images_with_configs, predetected):
+        """Pooled cross-page OCR pre-pass: pages that share an identical
+        48px OCR config pool their predetected text lines into shared
+        decode chunks (``ocr/model_48px.infer_pooled``). Returns {page_idx:
+        textlines} for pages recognised here; others fall through to
+        per-page OCR. Verbose runs keep the per-page path (debug crop dirs
+        are per page)."""
+        from . import ocr as ocr_mod
+        if self.verbose:
+            return {}
+        groups: dict = {}
+        for idx, (image, config) in enumerate(images_with_configs):
+            pre = predetected.get(idx)
+            if pre is None or not pre[0]:
+                continue
+            if config.ocr.ocr != OcrEnum.ocr48px:
+                continue
+            groups.setdefault(config.ocr.model_dump_json(), []).append(idx)
+        out = {}
+        for _key, idxs in groups.items():
+            if len(idxs) < 2:
+                continue
+            try:
+                o = ocr_mod.get_ocr(OcrEnum.ocr48px)
+                if not getattr(o, 'infer_pooled', None):
+                    continue
+                self._mark_used('ocr', OcrEnum.ocr48px)
+                await o.load(self.device)
+                imgs = []
+                for i in idxs:
+                    im = images_with_configs[i][0]
+                    imgs.append(im if isinstance(im, np.ndarray)
+                                else np.array(im.convert('RGB')))
+                results = await o.infer_pooled(
+                    imgs, [predetected[i][0] for i in idxs],
+                    images_with_configs[idxs[0]][1].ocr)
+                for i, res in zip(idxs, results):
+                    out[i] = res
+            except Exception:
+                logger.warning('pooled OCR failed; falling back to '
+                               f'per-page:\n{traceback.format_exc()}')
+        return out
+
+    async def _translate_until_translation(self, config: Config,
+                                           ctx: Context) -> Context:
+        if config.colorizer.colorizer != Colorizer.none:
+            ctx.img_colorized = await self._run_colorizer(config, ctx)
+        else:
+            ctx.img_colorized = ctx.input
+        if config.upscale.upscale_ratio:
+            ctx.upscaled = await self._run_upscaling(config, ctx)
+        else:
+            ctx.upscaled = ctx.img_colorized
+        ctx.img_rgb, ctx.img_alpha = load_image(ctx.upscaled)
+        if ctx.get('predetected') is not None:
+            ctx.textlines, ctx.mask_raw, ctx.mask = ctx.predetected
+            ctx.predetected = None
+        else:
+            ctx.textlines, ctx.mask_raw, ctx.mask = await self._run_detection(
+                config, ctx)
+        if not ctx.textlines:
+            ctx.text_regions = []
+            return ctx
+        ctx.textlines = await self._run_ocr(config, ctx)
+        if not ctx.textlines:
+            ctx.text_regions = []
+            return ctx
+        ctx.text_regions = await self._run_textline_merge(config, ctx)
+        return ctx
+
+    async def _batch_translate_contexts(self, contexts: List[Context],
+                                        configs: List[Config],
+                                        batch_size: int):
+        from . import translators
+        for start in range(0, len(contexts), batch_size):
+            chunk = contexts[start:start + batch_size]
+            chunk_cfgs = configs[start:start + batch_size]
+            batch_queries = [[r.text for r in (ctx.get('text_regions') or [])]
+                             for ctx in chunk]
+            if not any(batch_queries):
+                continue
+            config = chunk_cfgs[0]
+            chain = config.translator.translator_gen
+            batch_results = await translators.dispatch_batch(
+                chain, batch_queries, config.translator, self.use_mtpe,
+                None, self.device)
+            for ctx, cfg, translations in zip(chunk, chunk_cfgs,
+                                              batch_results):
+                self._apply_translations(cfg, ctx, translations)
+
+    async def _concurrent_translate_contexts(self, contexts: List[Context],
+                                             configs: List[Config]):
+        from . import translators
+
+        async def one(ctx: Context, config: Config):
+            regions = ctx.get('text_regions') or []
+            queries = [r.text for r in regions]
+            if not queries:
+                return
+            chain = config.translator.translator_gen
+            translations = await translators.dispatch(
+                chain, queries, config.translator, self.use_mtpe, ctx,
+                self.device)
+            self._apply_translations(config, ctx, translations)
+
+        await asyncio.gather(*(one(c, cfg)
+                               for c, cfg in zip(contexts, configs)))
+
+    def _apply_translations(self, config: Config, ctx: Context,
+                            translations: List[str]):
+        post_dict = load_dictionary(self.post_dict)
+        regions = ctx.get('text_regions') or []
+        for region, translation in zip(regions, translations):
+            translation = apply_dictionary(translation or '', post_dict)
+            if config.render.uppercase:
+                translation = translation.upper()
+            elif config.render.lowercase:
+                translation = translation.lower()
+            region.translation = translation
+            region.target_lang = config.translator.target_lang
+
+    async def _complete_translation_pipeline(self, config: Config,
+                                             ctx: Context) -> Context:
+        if not ctx.get('text_regions'):
+            ctx.result = ctx.get('upscaled', ctx.input)
+            return await self._revert_upscale(config, ctx)
+        keep = [r for r in ctx.text_regions
+                if getattr(r, 'translation', '') != ''
+                or config.translator.translator in (Translator.none,)]
+        ctx.text_regions = keep
+        if ctx.mask is None:
+            ctx.mask = await self._run_mask_refinement(config, ctx)
+        if ctx.get('img_inpainted') is None:   # batch phase 3a may have run
+            ctx.img_inpainted = await self._run_inpainting(config, ctx)
+        ctx.gimp_mask = np.dstack(
+            (cv2.cvtColor(ctx.img_inpainted, cv2.COLOR_RGB2BGR), ctx.mask))
+        ctx.img_rendered = await self._run_text_rendering(config, ctx)
+        ctx.result = dump_image(ctx.img_rendered, ctx.img_alpha)
+        return await self._revert_upscale(config, ctx)
 
 
 # Canonical (language, script-or-region) forms for every code that can appear

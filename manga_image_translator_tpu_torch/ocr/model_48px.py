@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``ocr/model_48px.py`` (reference
 averaging). Crops are host cv2 warps, width-sorted, padded into fixed width
 buckets and 16/24-crop chunks; consecutive same-bucket chunks share one
 backbone + encoder forward; each chunk decodes at a short first-tier length
-and re-decodes only its unfinished rows at the full length.
+and re-decodes only its unfinished rows at the full length. Batch mode
+(``infer_pooled``) pools the lines of several pages into the same chunks.
 """
 from __future__ import annotations
 
@@ -121,16 +122,82 @@ class Model48pxOCR(OfflineOCR):
         # host cv2 crops (the device-crop path waits for ROADMAP A.14)
         region_imgs = [q.get_transformed_region(image, d, TEXT_HEIGHT)
                        for q, d in quadrilaterals]
-        widths_all = [r.shape[1] for r in region_imgs]
         perm = list(range(len(quadrilaterals)))
         if is_quadrilaterals:
-            perm = sorted(perm, key=lambda x: widths_all[x])
+            perm = sorted(perm, key=lambda x: region_imgs[x].shape[1])
+        dump_dirs = [d for _q, d in quadrilaterals] if verbose else None
+        for idx, prob, txt, colors in self._read_crops(
+                region_imgs, perm, threshold, dump_dirs):
+            fr, fgc, fb, br, bgc, bb = colors
+            cur_region = quadrilaterals[idx][0]
+            if isinstance(cur_region, Quadrilateral):
+                cur_region.text = txt
+                cur_region.prob = prob
+                cur_region.fg_r, cur_region.fg_g, cur_region.fg_b = fr, fgc, fb
+                cur_region.bg_r, cur_region.bg_g, cur_region.bg_b = br, bgc, bb
+            else:
+                cur_region.text.append(txt)
+                cur_region.update_font_colors(
+                    np.array([fr, fgc, fb]), np.array([br, bgc, bb]))
+            out_regions.append(cur_region)
 
-        ix = 0
+        if is_quadrilaterals:
+            return out_regions
+        return textlines
+
+    async def infer_pooled(self, images: List[np.ndarray],
+                           textlines_list: List[List[Quadrilateral]],
+                           config: OcrConfig, verbose: bool = False
+                           ) -> List[List[Quadrilateral]]:
+        """OCR several pages' text lines pooled into shared chunks: the
+        lines of all pages are width-sorted together, so sparse pages fill
+        one chunk instead of each decoding a partial one. Returns each
+        page's recognised lines, in the order the per-page path gives."""
+        threshold = 0.2 if config.prob is None else config.prob
+        entries = []          # (page index, quad, direction)
+        for pi, tls in enumerate(textlines_list):
+            for q, d in self._generate_text_direction(tls):
+                entries.append((pi, q, d))
+        out: List[List[Quadrilateral]] = [[] for _ in images]
+        if not entries:
+            return out
+        if not isinstance(entries[0][1], Quadrilateral):
+            # TextBlock inputs keep the per-page path
+            for pi, tls in enumerate(textlines_list):
+                out[pi] = await self._infer(images[pi], tls, config,
+                                            verbose)
+            return out
+
+        region_imgs = [q.get_transformed_region(images[pi], d, TEXT_HEIGHT)
+                       for pi, q, d in entries]
+        perm = sorted(range(len(entries)),
+                      key=lambda i: region_imgs[i].shape[1])
+        for idx, prob, txt, colors in self._read_crops(region_imgs, perm,
+                                                       threshold):
+            pi, cur_region, _d = entries[idx]
+            cur_region.text = txt
+            cur_region.prob = prob
+            (cur_region.fg_r, cur_region.fg_g, cur_region.fg_b,
+             cur_region.bg_r, cur_region.bg_g, cur_region.bg_b) = colors
+            out[pi].append(cur_region)
+        return out
+
+    def _read_crops(self, region_imgs: List[np.ndarray], perm: List[int],
+                    threshold: float, dump_dirs=None):
+        """Recognise ``region_imgs`` in the order ``perm``: pad them into
+        width-bucketed chunks of 16 crops (24 when there are more than 16),
+        run one backbone + encoder forward for each run of up to
+        ``MEM_GROUP_CHUNKS`` consecutive same-shape chunks, beam-decode each
+        chunk in two tiers and turn the tokens into text and colours.
+        Returns ``(index, prob, text, colours)`` for every crop whose
+        probability reaches ``threshold`` and whose text is not empty, in
+        chunk order. ``dump_dirs`` (a direction per crop) writes each crop
+        to the debug directory."""
         chunk_size = BIG_CHUNK if len(perm) > MAX_CHUNK else MAX_CHUNK
         built = []
+        ix = 0
         for indices in chunks(perm, chunk_size):
-            widths = [widths_all[i] for i in indices]
+            widths = [region_imgs[i].shape[1] for i in indices]
             bw = bucket_width(max(widths))
             valid_widths = np.zeros((chunk_size,), np.int32)
             valid_widths[:len(indices)] = [min(w, bw) for w in widths]
@@ -138,8 +205,8 @@ class Model48pxOCR(OfflineOCR):
             for i, idx in enumerate(indices):
                 w = min(region_imgs[idx].shape[1], bw)
                 batch[i, :, :w, :] = region_imgs[idx][:, :w]
-                if verbose:
-                    self._dump_crop(batch[i], quadrilaterals[idx][1], ix)
+                if dump_dirs is not None:
+                    self._dump_crop(batch[i], dump_dirs[idx], ix)
                 ix += 1
             images = (torch.from_numpy(batch).to(self.device).float()
                       / 127.5 - 1.0)
@@ -166,38 +233,21 @@ class Model48pxOCR(OfflineOCR):
                 off += cs
                 results.append((indices, self._two_tier_decode(mem)))
 
+        found = []
         for indices, ret in results:
-            sequences = ret['sequences']
-            probs = ret['probs']
-            fg, bg = ret['fg'], ret['bg']
-            fg_ind, bg_ind = ret['fg_ind'], ret['bg_ind']
-            for i in range(len(indices)):
-                prob = float(probs[i])
+            for i, idx in enumerate(indices):
+                prob = float(ret['probs'][i])
                 if prob < threshold:
                     continue
                 txt, colors = self._decode_tokens(
-                    sequences[i], fg[i], bg[i], fg_ind[i], bg_ind[i])
+                    ret['sequences'][i], ret['fg'][i], ret['bg'][i],
+                    ret['fg_ind'][i], ret['bg_ind'][i])
                 if txt is None:
                     continue
-                fr, fgc, fb, br, bgc, bb = colors
                 self.logger.info(
-                    f'prob: {prob} {txt} fg: ({fr}, {fgc}, {fb}) '
-                    f'bg: ({br}, {bgc}, {bb})')
-                cur_region = quadrilaterals[indices[i]][0]
-                if isinstance(cur_region, Quadrilateral):
-                    cur_region.text = txt
-                    cur_region.prob = prob
-                    cur_region.fg_r, cur_region.fg_g, cur_region.fg_b = fr, fgc, fb
-                    cur_region.bg_r, cur_region.bg_g, cur_region.bg_b = br, bgc, bb
-                else:
-                    cur_region.text.append(txt)
-                    cur_region.update_font_colors(
-                        np.array([fr, fgc, fb]), np.array([br, bgc, bb]))
-                out_regions.append(cur_region)
-
-        if is_quadrilaterals:
-            return out_regions
-        return textlines
+                    f'prob: {prob} {txt} fg: {colors[:3]} bg: {colors[3:]}')
+                found.append((idx, prob, txt, colors))
+        return found
 
     def _two_tier_decode(self, memory):
         """Beam decode at FAST_SEQ_LEN first; rows whose best sequence never

@@ -82,8 +82,10 @@ def test_load_rejects_missing_and_misshaped(ocr_params):
 
 def test_port_never_imports_jax():
     """The port's main path, CLI and ct2 translators import neither jax nor
-    the JAX package, nor the packages only other translators need (a fresh
-    interpreter: this test process already has jax)."""
+    the JAX package, nor the packages only other translators need; the
+    serving entry points (gateway, executor, ws worker, studio) import
+    neither jax nor the JAX package (a fresh interpreter: this test process
+    already has jax)."""
     code = (
         'import sys\n'
         'import manga_image_translator_tpu_torch.manga_translator\n'
@@ -113,7 +115,20 @@ def test_port_never_imports_jax():
         '# the card machine may lack these: only a chosen translator imports\n'
         'late = [m for m in ("aiohttp", "openai", "transformers")\n'
         '        if m in sys.modules]\n'
-        'assert not late, late\n')
+        'assert not late, late\n'
+        '# the serving entry points, which import aiohttp themselves\n'
+        'import manga_image_translator_tpu_torch.server.main\n'
+        'import manga_image_translator_tpu_torch.server.instance\n'
+        'import manga_image_translator_tpu_torch.server.myqueue\n'
+        'import manga_image_translator_tpu_torch.server.to_json\n'
+        'import manga_image_translator_tpu_torch.mode.share\n'
+        'import manga_image_translator_tpu_torch.mode.ws\n'
+        'import manga_image_translator_tpu_torch.studio\n'
+        'import manga_image_translator_tpu_torch.utils.threading\n'
+        'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
+        '       or m == "manga_image_translator_tpu"\n'
+        '       or m.startswith("manga_image_translator_tpu.")]\n'
+        'assert not bad, bad\n')
     env = dict(os.environ)
     env['PYTHONPATH'] = str(ROOT)
     res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
