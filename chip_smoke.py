@@ -43,7 +43,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``--start-instance`` (``server``: the gateway and its ``shared``
    executor, each a process of its own, answer ``/translate/json``,
    ``/translate/bytes/stream`` and ``/translate/batch/json``); one page
-   through the ws worker (``ws``);
+   through the ws worker (``ws``); the other detectors and inpainters
+   (``backends``): each network (ctd, craft with its refiner, dbconvnext,
+   paddle, AOT, the 9-block lama_mpe generator with its embeddings) on
+   the card against the CPU within 1e-3 of max |cpu|, the lama_mpe
+   generator's K4/K5 routes against its plain routes, one page through
+   the ``local`` CLI with ``ctd`` + ``lama_mpe`` (K1-K5 must launch, only
+   9-block MPE forwards) and with ``craft`` + ``default`` (AOT; K1-K3
+   must launch, K4 and K5 not), then ``dbconvnext`` and ``paddle``
+   through ``detection.dispatch``;
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -489,40 +497,56 @@ def check_lama(results):
     check_generator((1, 512, 512), 'crop_512')
 
 
-def check_generator(shape, at):
-    """The whole generator on an (n, h, w) input in f32: kernels against
-    the plain routes with the same weights, 1e-3 absolute on the output.
-    Random weights grow the trunk through 18 residual blocks until the
+def scaled_generator(model, n_blocks):
+    """A copy of ``model`` with each block's second FFC scaled by 0.1.
+    Random weights grow the trunk through the residual blocks until the
     sigmoid saturates (logits ~1e8, every output 0 or 1), which would hide
-    any difference: here each block's second FFC is scaled by 0.1 (its
-    ReLU'd branch with it), which keeps the output in (0, 1)."""
-    from manga_image_translator_tpu_torch.models import lama
-    from manga_image_translator_tpu_torch.ops import conv_stream as k5
-    from manga_image_translator_tpu_torch.ops import fourier_unit as k4
-    n, h, w = shape
-    model = copy.deepcopy(lama_model())
+    any difference; scaled, the output stays in (0, 1)."""
+    model = copy.deepcopy(model)
     with torch.no_grad():
-        for i in range(LAMA_BLOCKS):
+        for i in range(n_blocks):
             ffc = model.model[5 + i].conv2.ffc
             for conv in (ffc.convl2l, ffc.convg2l, ffc.convl2g,
                          ffc.convg2g.conv2):
                 conv.weight.mul_(0.1)
                 if conv.bias is not None:
                     conv.bias.mul_(0.1)
+    return model
+
+
+def check_generator(shape, at, n_blocks=LAMA_BLOCKS, mpe=None):
+    """The whole generator (lama_large's, or with ``mpe`` the 9-block
+    lama_mpe one with both embeddings) on an (n, h, w) input in f32:
+    kernels against the plain routes with the same weights, 1e-3 absolute
+    on the output (``scaled_generator``)."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.models import lama
+    from manga_image_translator_tpu_torch.ops import conv_stream as k5
+    from manga_image_translator_tpu_torch.ops import fourier_unit as k4
+    n, h, w = shape
+    model = scaled_generator(lama_model() if mpe is None
+                             else mpe_generator(), n_blocks)
     g = torch.Generator(device='cuda').manual_seed(5)
     img = torch.rand((n, h, w, 3), generator=g, device='cuda')
     mask = (torch.rand((n, h, w, 1), generator=g, device='cuda')
             < 0.3).float()
     img = img * (1 - mask)
+    emb = ()
+    if mpe is not None:
+        encs = [lama.masked_position_encoding(m[..., 0])
+                for m in mask.cpu().numpy()]
+        with torch.inference_mode():
+            emb = mpe(*[torch.from_numpy(np.stack([e[i] for e in encs]))
+                        .cuda() for i in (0, 1)])
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     routes = (lama.fourier_unit, lama.conv2d_stream)
     try:
         with torch.inference_mode():
-            got = model(img, mask)
+            got = model(img, mask, *emb)
             lama.fourier_unit = k4.fourier_unit_ref
             lama.conv2d_stream = k5.conv2d_stream_ref
-            ref = model(img, mask)
+            ref = model(img, mask, *emb)
         torch.cuda.synchronize()
     finally:
         lama.fourier_unit, lama.conv2d_stream = routes
@@ -530,7 +554,7 @@ def check_generator(shape, at):
     err = float((got - ref).abs().max())
     unsaturated = float(((ref > 0.01) & (ref < 0.99)).float().mean())
     emit({'phase': 'check', 'kernel': 'lama_generator', 'at': at,
-          'blocks': LAMA_BLOCKS,
+          'blocks': n_blocks, 'mpe': mpe is not None,
           'shape': list(img.shape), 'dtype': 'float32', 'max_abs_err': err,
           'output_range': [float(ref.min()), float(ref.max())],
           'unsaturated_share': unsaturated, 'tol': 1e-3})
@@ -1725,6 +1749,434 @@ def phase_ws(page_dir, cfg_path):
     require(out.size == (PAGE_W, PAGE_H), f'ws result size {out.size}')
 
 
+# ---------------------------------------------------------------------------
+# the other detectors and inpainters
+# ---------------------------------------------------------------------------
+
+MPE_BLOCKS = 9                 # lama_mpe
+MPE_ALPHA = 0.5                # the init's 0 would switch the MPE off
+# the two configurations through the local CLI, and the detectors run by
+# dispatch on the same page, each at its detection size
+BACKEND_CONFIGS = {'a': {'detector': 'ctd', 'inpainter': 'lama_mpe'},
+                   'b': {'detector': 'craft', 'inpainter': 'default'}}
+DISPATCHED = ('dbconvnext', 'paddle')
+BACKEND_DETECT_SIZE = {'ctd': 2048, 'craft': 2048, 'dbconvnext': 2048,
+                       'paddle': 2048}
+BACKEND_CANVAS = 1024          # ctd's fixed input; the detectors' canvas
+BACKEND_CROP = 512             # AOT's crop, the lama_mpe generator's bucket
+# kernels each configuration's path must launch, and must not
+BACKEND_KERNELS = {'a': (('bilateral', 'decode_step', 'charhead',
+                          'fourier_unit', 'conv_stream'), ()),
+                   'b': (('bilateral', 'decode_step', 'charhead'),
+                         ('fourier_unit', 'conv_stream'))}
+
+
+@functools.lru_cache(maxsize=1)
+def mpe_generator():
+    """The 9-block lama_mpe generator, seeded random weights, BN folded,
+    f32, on the card."""
+    from manga_image_translator_tpu_torch.models import lama
+    return lama.fold_bn(lama.build_lama(
+        MPE_BLOCKS, lama.init_state_dict(MPE_BLOCKS), 'cuda'))
+
+
+def mpe_tables(device):
+    """The MPE module with its init tables and both scales at
+    ``MPE_ALPHA``."""
+    from manga_image_translator_tpu_torch.models import lama
+    sd = lama.mpe_init_state_dict()
+    sd['alpha5'] = sd['alpha6'] = torch.tensor(MPE_ALPHA)
+    return lama.build_mpe(sd, device)
+
+
+def backend_models(rgb):
+    """name -> (f32 model on the CPU, forward(model, *inputs), CPU inputs)
+    of each network of the other detectors and inpainters at full width:
+    ctd at its fixed 1024² input, craft (with its refiner), dbconvnext and
+    paddle on the page letterboxed into 1024², AOT on one 512² crop, the
+    lama_mpe generator (``scaled_generator``, embeddings at scale 0.5) on
+    one 512² crop bucket. Inputs as each detector or inpainter makes
+    them."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.models import (aot, craft, ctd,
+                                                         dbnet_convnext, lama,
+                                                         paddle_det)
+    canvas = torch.from_numpy(_letterbox([rgb], BACKEND_CANVAS)).float()
+    imagenet = (torch.tensor([0.485, 0.456, 0.406]),
+                torch.tensor([0.229, 0.224, 0.225]))
+    c = BACKEND_CROP
+    crop = torch.from_numpy(np.ascontiguousarray(rgb[:c, :c])).float()
+    mask = torch.from_numpy(stroke_mask(rgb)[:c, :c] >= 127)[
+        None, ..., None].float()
+    out = {}
+    out['ctd'] = (ctd.build_ctd('cpu', ctd.init_state_dict()),
+                  ctd.ctd_forward, (canvas / 255.0,))
+    out['craft'] = (
+        torch.nn.ModuleList([
+            craft.build(craft.CRAFT, 'cpu', craft.init_state_dict()),
+            craft.build(craft.RefineNet, 'cpu',
+                        craft.init_refiner_state_dict())]),
+        lambda m, x: craft.craft_forward(m[0], m[1], x),
+        ((canvas - imagenet[0] * 255) / (imagenet[1] * 255),))
+    out['dbconvnext'] = (
+        dbnet_convnext.build_dbnet_convnext('cpu',
+                                            dbnet_convnext.init_state_dict()),
+        dbnet_convnext.dbnet_convnext_forward, (canvas / 127.5 - 1.0,))
+    out['paddle'] = (
+        paddle_det.build_paddle_det('cpu', paddle_det.init_state_dict()),
+        paddle_det.paddle_det_forward,
+        ((canvas / 255.0 - imagenet[0]) / imagenet[1],))
+    out['aot'] = (aot.build_aot('cpu', aot.init_state_dict()),
+                  lambda m, i, k: m(i, k),
+                  ((crop[None] / 127.5 - 1.0) * (1 - mask), mask))
+    rel, direct = lama.masked_position_encoding(mask[0, ..., 0].numpy())
+    gen = scaled_generator(mpe_generator(), MPE_BLOCKS).cpu()
+    out['lama_mpe'] = (
+        torch.nn.ModuleList([gen, mpe_tables('cpu')]),
+        lambda m, i, k, r, d: m[0](i, k, *m[1](r, d)),
+        (crop[None] / 255.0 * (1 - mask), mask,
+         torch.from_numpy(rel)[None], torch.from_numpy(direct)[None]))
+    return out
+
+
+# Random AOT weights are chaotic in f32: each of the 10 AOT blocks about
+# doubles a perturbation (the gate's layer norm scales by 10 / std), so an
+# input change of 1e-6 moves the 512² output by up to 2.7e-2 on the CPU
+# (PERF.md §6). AOT is held card against CPU in f64, where rounding
+# cannot reach 1e-3; its f32 difference is reported beside the CPU's own
+# change under a one-ulp change of the input.
+F64_CHECKED = ('aot',)
+
+
+def _card_vs_cpu(model, fwd, inputs):
+    """(max |card - cpu| / max |cpu| over the outputs, CPU seconds, the
+    CPU outputs)."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = fwd(model, *inputs)
+    cpu_s = time.perf_counter() - t0
+    card = copy.deepcopy(model).cuda()
+    with torch.inference_mode():
+        got = fwd(card, *[x.cuda() for x in inputs])
+    torch.cuda.synchronize()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    require(all(g.is_cuda for g in got), 'a network left the card')
+    rel = max(float((g.double().cpu() - r.double()).abs().max())
+              / float(r.double().abs().max()) for g, r in zip(got, ref))
+    return rel, cpu_s, ref
+
+
+def check_backend_models(rgb):
+    """Each network of ``backend_models`` on the card against the same
+    weights and inputs on the CPU, without TF32: max |card - cpu| at most
+    1e-3 of max |cpu| (the JAX suite's bound between two frameworks,
+    tests/test_model_oracle.py:72), in f32, AOT in f64
+    (``F64_CHECKED``). The lama_mpe generator runs K4 and K5 on the
+    card."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    checks = {}
+    try:
+        for name, (model, fwd, inputs) in backend_models(rgb).items():
+            rel, cpu_s, ref = _card_vs_cpu(model, fwd, inputs)
+            checks[name] = {'shape': [list(x.shape) for x in inputs],
+                            'dtype': 'float32', 'max_rel_err': rel,
+                            'cpu_s': cpu_s}
+            if name in F64_CHECKED:
+                with torch.inference_mode():
+                    ulp = fwd(model, *[torch.nextafter(
+                        x, torch.tensor(float('inf'))) for x in inputs])
+                ulp = ulp if isinstance(ulp, tuple) else (ulp,)
+                checks[name]['cpu_change_one_ulp_input'] = max(
+                    float((u - r).abs().max()) / float(r.abs().max())
+                    for u, r in zip(ulp, ref))
+                checks[name]['float32_max_rel_err'] = rel
+                rel, _, _ = _card_vs_cpu(
+                    model.double(), fwd, [x.double() for x in inputs])
+                checks[name].update(dtype='float64', max_rel_err=rel)
+            require(rel <= 1e-3, f'{name}: card against CPU {rel} of max')
+            del model, ref
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return checks
+
+
+def phase_backends(cfg_path):
+    """The other detectors and inpainters on the card (``backends``):
+
+    1. each network against the CPU (``check_backend_models``), and the
+       lama_mpe generator's kernel routes against its plain routes
+       (``check_generator``);
+    2. one synthetic page through the ``local`` CLI in configuration (a)
+       ``ctd`` + ``lama_mpe`` and (b) ``craft`` + ``default`` (AOT), the
+       detector's real output on random weights, then OCR → inpaint →
+       render on the page's known boxes (``_known_quads_pass``); the
+       launch counters set to 0 just before each and read just after: (a)
+       must launch K1-K5 and run only 9-block MPE forwards, (b) K1-K3 and
+       neither K4 nor K5; the inpainted page may change only inside the
+       mask; the orchestrator may log no failure;
+    3. ``dbconvnext`` and ``paddle`` through ``detection.dispatch`` on the
+       same page.
+
+    Prints the ``backends`` line: stage ms per configuration, per detector
+    its first forward (device-synchronised wall, cuDNN's first-call setup
+    included), the same forward warm (CUDA events) and the host ms of its
+    detection, MPE encoding host ms per crop, the LaMa-MPE and AOT
+    forwards with the device ms of one at their largest bucket, peak
+    device memory."""
+    from PIL import Image
+    from manga_image_translator_tpu_torch import detection
+    from manga_image_translator_tpu_torch.config import Detector
+    from manga_image_translator_tpu_torch.detection import (craft, ctd,
+                                                            dbnet_convnext,
+                                                            paddle)
+    from manga_image_translator_tpu_torch.utils.generic import load_image
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    page_dir = os.path.join(WORK, 'backend_pages')
+    boxes = make_pages(page_dir, 1)
+    name = sorted(boxes)[0]
+    page_path = os.path.join(page_dir, name)
+    rgb = load_image(Image.open(page_path))[0]
+
+    t0 = time.perf_counter()
+    models = check_backend_models(rgb)
+    check_generator((1, BACKEND_CROP, BACKEND_CROP),
+                    f'mpe_crop_{BACKEND_CROP}', MPE_BLOCKS, mpe_tables('cuda'))
+    checks_s = time.perf_counter() - t0
+
+    # each detector's network forward, device-synchronised, by detector;
+    # its first call's arguments are kept to time it warm afterwards
+    forward_ms = collections.defaultdict(list)
+    first_calls = {}
+
+    def timed_forward(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            forward_ms[key].append((time.perf_counter() - t) * 1e3)
+            first_calls.setdefault(key, (fn, args, kw))
+            return out
+        return run
+    wrapped = [(ctd, '_forward_batch', 'ctd'), (craft, '_forward', 'craft'),
+               (dbnet_convnext, '_forward_batch', 'dbconvnext'),
+               (paddle, '_forward', 'paddle')]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in wrapped]
+    for mod, attr, key in wrapped:
+        setattr(mod, attr, timed_forward(key, getattr(mod, attr)))
+
+    with open(cfg_path) as f:
+        base = json.load(f)
+    configs, detect_ms = {}, {}
+    try:
+        for key, chosen in BACKEND_CONFIGS.items():
+            cfg = copy.deepcopy(base)
+            cfg['detector'].update(
+                detector=chosen['detector'],
+                detection_size=BACKEND_DETECT_SIZE[chosen['detector']])
+            cfg['inpainter'] = {'inpainter': chosen['inpainter']}
+            path = os.path.join(WORK, f'config_{key}.json')
+            with open(path, 'w') as f:
+                json.dump(cfg, f)
+            configs[key] = run_backend_config(key, chosen, path, page_dir,
+                                              name, boxes[name])
+        for key in DISPATCHED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines, raw, _ = asyncio.run(detection.dispatch(
+                Detector(key), rgb, BACKEND_DETECT_SIZE[key], 0.5, 0.7, 2.3,
+                False, False, False, device='cuda'))
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            det = detection.get_detector(Detector(key))
+            require(det.device.type == 'cuda', f'{key} ran on {det.device}')
+            require(raw is not None and raw.ndim == 2,
+                    f'{key}: no raw mask')
+            detect_ms[key] = {'size': BACKEND_DETECT_SIZE[key],
+                              'lines': len(lines), 'total_ms': total,
+                              'forward_ms': forward_ms[key][-1],
+                              'host_ms': total - forward_ms[key][-1]}
+            asyncio.run(detection.unload(Detector(key)))
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    # warm: CUDA events around the same call, cuDNN's first-call setup done
+    for key, (fn, args, kw) in first_calls.items():
+        detect_ms.setdefault(key, {})['warm_forward_ms'] = cuda_ms(
+            lambda: fn(*args, **kw), iters=10, warmup=2, reps=2)
+        detect_ms[key]['canvas'] = list(args[-1].shape)
+    del first_calls
+    for key, r in configs.items():
+        det = BACKEND_CONFIGS[key]['detector']
+        total = r['stage_ms_cli'].get('detect')
+        detect_ms.setdefault(det, {}).update(
+            size=BACKEND_DETECT_SIZE[det], lines=r['detected_lines'],
+            total_ms=total, forward_ms=forward_ms[det][0],
+            host_ms=(total - forward_ms[det][0] if total is not None
+                     else None))
+
+    inpaint_ms = {key: time_inpainter_forward(
+        r['inpainter'], [tuple(f) for f in r['inpaint_forwards']], rgb)
+        for key, r in configs.items()}
+    peak = torch.cuda.max_memory_allocated()
+    record = {'phase': 'backends', 'card': torch.cuda.get_device_name(0),
+              'models_card_vs_cpu': models, 'checks_s': checks_s,
+              'configs': configs, 'detectors': detect_ms,
+              'inpainter_forward': inpaint_ms,
+              'max_memory_allocated': peak,
+              'seconds': time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
+def time_inpainter_forward(key, forwards, rgb):
+    """Device ms of one generator forward of inpainter ``key`` (bf16, its
+    default) at the largest bucket it ran, on the page's pixels and stroke
+    mask; lama_mpe's embeddings are made beforehand (their host BFS is
+    timed by the run itself)."""
+    import numpy as np
+    from manga_image_translator_tpu_torch import inpainting
+    from manga_image_translator_tpu_torch.config import Inpainter
+    from manga_image_translator_tpu_torch.inpainting import (inpainting_aot,
+                                                             inpainting_lama)
+    inp = inpainting.get_inpainter(Inpainter(key))
+    n, h, w = max(forwards, key=lambda f: f[0] * f[1] * f[2])
+    imgs = np.ascontiguousarray(np.repeat(rgb[None, :h, :w], n, 0))
+    masks = np.ascontiguousarray(np.repeat(stroke_mask(rgb)[None, :h, :w],
+                                           n, 0))
+    img = torch.from_numpy(imgs).cuda().float()
+    msk = (torch.from_numpy(masks).cuda().float()[..., None] / 255.0
+           >= 0.5).float()
+    with torch.inference_mode():
+        if key == 'lama_mpe':
+            emb = inp._embeddings(masks)
+            inp.encodings.pop()
+            model, dtype = inp._model_for(torch.bfloat16), torch.bfloat16
+
+            def fwd():
+                return inpainting_lama._lama_body(model, img / 255.0, msk,
+                                                  dtype, emb)
+        else:
+            def fwd():
+                return inpainting_aot._aot_body(
+                    inp.model, img / 127.5 - 1.0, msk,
+                    inpainting_aot.COMPUTE_DTYPE)
+        ms = cuda_ms(fwd, iters=10, warmup=2, reps=2)
+    return {'bucket': [n, h, w], 'device_ms': ms}
+
+
+def run_backend_config(key, chosen, cfg_path, page_dir, name, quads):
+    """One configuration of ``phase_backends``: the page through the
+    ``local`` CLI's translator, then the known-box pass, launch counters
+    set to 0 just before and read just after."""
+    from manga_image_translator_tpu_torch import (inpainting,
+                                                  manga_translator as mt)
+    from manga_image_translator_tpu_torch.args import parser
+    from manga_image_translator_tpu_torch.config import Inpainter
+    from manga_image_translator_tpu_torch.inpainting.inpainting_lama import \
+        LamaMPEInpainter
+    from manga_image_translator_tpu_torch.mode.local import (
+        MangaTranslatorLocal, load_config_file)
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    dest = os.path.join(OUT, f'backends_{key}')
+    args = vars(parser.parse_args(['local', '-i', page_dir, '--dest', dest,
+                                   '--config-file', cfg_path,
+                                   '--overwrite']))
+    stage_ms = {}
+    detected = []
+
+    async def hook(state, finished):
+        if state.startswith('stage-time:'):
+            _, stage, ms = state.split(':')
+            stage_ms[stage] = stage_ms.get(stage, 0.0) + float(ms)
+
+    inp = inpainting.get_inpainter(Inpainter(chosen['inpainter']))
+    decodes = []
+
+    async def drive():
+        translator = MangaTranslatorLocal(args)
+        require(translator.device == 'cuda',
+                f'translator runs on {translator.device}, not cuda')
+        translator.add_progress_hook(hook)
+        detect = translator._run_detection
+
+        async def detect_counted(config, ctx):
+            out = await detect(config, ctx)
+            detected.append(len(out[0]))
+            return out
+        translator._run_detection = detect_counted
+        await translator.translate_path(args['input'], dest, args)
+        config = load_config_file(cfg_path)
+        require(config.detector.detector.value == chosen['detector']
+                and config.inpainter.inpainter.value == chosen['inpainter'],
+                f'configuration {key} runs {config.detector.detector} and '
+                f'{config.inpainter.inpainter}')
+        return await _known_quads_pass(
+            translator, config, os.path.join(page_dir, name), quads,
+            decodes)
+
+    torch.cuda.synchronize()
+    inp.forwards = []
+    encodings_before = len(getattr(inp, 'encodings', []))
+    with _Failures(mt.logger) as failures, recording_decodes(decodes):
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        extra = asyncio.run(drive())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = cuda_build.launch_counts()
+    out_path = os.path.join(dest, name)
+    require(os.path.isfile(out_path), f'{key}: page not written: {out_path}')
+    forwards = list(inp.forwards)
+    result = {'detector': chosen['detector'],
+              'inpainter': chosen['inpainter'], 'wall_s': wall,
+              'stage_ms_cli': stage_ms, 'stage_ms_known_boxes':
+              extra['stage_ms'], 'detected_lines': detected[0],
+              'ocr_lines': extra['ocr_lines'], 'launches': counts,
+              'inpaint_forwards': [list(f) for f in forwards],
+              'mask_pixels': extra['mask_pixels'],
+              'inpainted_pixels_inside': extra['inpainted_pixels_inside'],
+              'inpainted_pixels_outside': extra['inpainted_pixels_outside'],
+              'logged_failures': failures.records[:5]}
+    if isinstance(inp, LamaMPEInpainter):
+        enc = inp.encodings[encodings_before:]
+        result['mpe_blocks'] = inp.model.n_blocks
+        result['mpe_encodings'] = len(enc)
+        result['mpe_encode_ms_per_crop'] = (
+            sum(ms for _, ms in enc) / max(sum(n for n, _ in enc), 1))
+        # one encoding per forward; K4 twice per block, K5 twice per
+        # forward: every LaMa forward was a 9-block MPE forward
+        require(inp.model.n_blocks == MPE_BLOCKS and inp.mpe is not None
+                and len(enc) == len(forwards)
+                and counts['fourier_unit'] == 2 * MPE_BLOCKS * len(forwards)
+                and counts['conv_stream'] == 2 * len(forwards),
+                f'{key}: {len(forwards)} LaMa forwards, {len(enc)} MPE '
+                f'encodings, {inp.model.n_blocks} blocks, launches '
+                f'{counts}')
+    must, must_not = BACKEND_KERNELS[key]
+    for k in must:
+        require(counts[k] > 0, f'{key}: kernel {k} was not launched')
+    for k in must_not:
+        require(counts[k] == 0, f'{key}: kernel {k} launched {counts[k]} '
+                f'times')
+    require(extra['ocr_lines'] == LINES_PER_PAGE,
+            f'{key}: {extra["ocr_lines"]} OCR lines')
+    require(forwards and extra['inpainted_pixels_inside'] > 0
+            and extra['inpainted_pixels_outside'] == 0,
+            f'{key}: inpainting changed {extra["inpainted_pixels_inside"]} '
+            f'pixels inside the mask, {extra["inpainted_pixels_outside"]} '
+            f'outside')
+    require(not failures.records, f'{key}: the orchestrator logged '
+            f'{failures.records[:3]}')
+    return result
+
+
 def phase_breakdown():
     """Where the detect stage's time goes on one pipeline page: the K1
     prefilter, the resize + pad, the DBNet forward (each device-timed) and
@@ -2465,6 +2917,7 @@ def main(argv=None) -> int:
     check_batch_kernels(results, batch)
     phase_server(page_dir, cfg_path)
     phase_ws(page_dir, cfg_path)
+    phase_backends(cfg_path)
     phase_breakdown()
     phase_times(results, forwards, batch['forwards'])
     per_call = phase_trace()

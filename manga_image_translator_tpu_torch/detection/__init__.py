@@ -1,7 +1,8 @@
 """Detection stage: registry + dispatch.
 
 Contract from reference ``detection/__init__.py:12-43``. The port serves
-the ``default`` and ``none`` detectors.
+every detector: ``default`` and ``none`` directly, the others through the
+JAX registry's lazy factories (their modules load on first use).
 """
 from __future__ import annotations
 
@@ -16,20 +17,30 @@ from .default import DefaultDetector
 from .none_detector import NoneDetector
 
 
-def _not_ported(name: str):
+def _lazy(name):
     def factory():
-        raise NotImplementedError(
-            f'detector "{name}" is not ported yet (ROADMAP A.10: other '
-            f'detectors)')
+        if name == 'ctd':
+            from .ctd import ComicTextDetector
+            return ComicTextDetector()
+        if name == 'craft':
+            from .craft import CRAFTDetector
+            return CRAFTDetector()
+        if name == 'dbconvnext':
+            from .dbnet_convnext import DBConvNextDetector
+            return DBConvNextDetector()
+        if name == 'paddle':
+            from .paddle import PaddleDetector
+            return PaddleDetector()
+        raise KeyError(name)
     return factory
 
 
 DETECTORS = {
     Detector.default: DefaultDetector,
-    Detector.dbconvnext: _not_ported('dbconvnext'),
-    Detector.ctd: _not_ported('ctd'),
-    Detector.craft: _not_ported('craft'),
-    Detector.paddle: _not_ported('paddle'),
+    Detector.dbconvnext: _lazy('dbconvnext'),
+    Detector.ctd: _lazy('ctd'),
+    Detector.craft: _lazy('craft'),
+    Detector.paddle: _lazy('paddle'),
     Detector.none: NoneDetector,
 }
 

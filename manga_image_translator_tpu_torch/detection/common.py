@@ -114,8 +114,11 @@ class CommonDetector(InfererModule):
             mask = mask[:old_h, :old_w]
         kept = []
         for q in textlines:
-            # drop regions fully inside the border area
-            if q.xyxy[0] >= old_w and q.xyxy[1] >= old_h:
+            # drop regions that start in the border area, right of or below
+            # the page (the reference drops only those right of and below
+            # it, and clips the others to a zero-width line, whose OCR crop
+            # then takes the 1e6-clamped ratio of its sides: ROADMAP §C)
+            if q.xyxy[0] >= old_w or q.xyxy[1] >= old_h:
                 continue
             pts = q.pts
             pts[:, 0] = np.clip(pts[:, 0], 0, old_w)

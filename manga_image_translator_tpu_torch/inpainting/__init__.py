@@ -1,7 +1,7 @@
 """Inpainting stage: registry + dispatch (contract: reference
-inpainting/__init__.py:13-45). The port serves ``lama_large`` (the
-default), ``none`` and ``original``; ``default`` (AOT) and ``lama_mpe``
-wait for ROADMAP A.9, ``sd`` for A.13."""
+inpainting/__init__.py:13-45: ``default`` maps to AOT, ``lama_large`` is
+the recommended one). The port serves every inpainter but ``sd``, which
+waits for ROADMAP A.13."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,22 +10,21 @@ import numpy as np
 
 from ..config import Inpainter, InpainterConfig
 from .common import CommonInpainter, OfflineInpainter
+from .inpainting_aot import AotInpainter
 from .inpainting_lama import LamaLargeInpainter, LamaMPEInpainter
 from .none_inpainter import NoneInpainter, OriginalInpainter
 
 
-def _not_ported(name: str, item: str):
-    def factory():
-        raise NotImplementedError(
-            f'inpainter "{name}" is not ported yet (ROADMAP {item})')
-    return factory
+def _sd_factory():
+    raise NotImplementedError(
+        'inpainter "sd" is not ported yet (ROADMAP A.13: Stable Diffusion)')
 
 
 INPAINTERS = {
-    Inpainter.default: _not_ported('default', 'A.9: other inpainters'),
+    Inpainter.default: AotInpainter,
     Inpainter.lama_large: LamaLargeInpainter,
     Inpainter.lama_mpe: LamaMPEInpainter,
-    Inpainter.sd: _not_ported('sd', 'A.13: Stable Diffusion'),
+    Inpainter.sd: _sd_factory,
     Inpainter.none: NoneInpainter,
     Inpainter.original: OriginalInpainter,
 }

@@ -9,10 +9,15 @@ normalisation, ``img *= (1 - mask)``, the generator in the compute dtype
 
 The checkpoint loads natively (``gen_state_dict``, the generator's own
 keys); BN is folded into the convs once at load. One card: no sharded
-batch. ``LamaMPEInpainter`` waits for ROADMAP A.9.
+batch. ``LamaMPEInpainter`` (lama_mpe) is the 9-block generator with the
+masked positional encoding: the host BFS encodes each page's or crop's
+mask, ``models.lama.MPE`` embeds it on the device, and the generator adds
+both embeddings to its stem's output; K4 and K5 run through the same
+wrappers as for lama_large.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import cv2
@@ -27,11 +32,12 @@ PAD_SIZE = 8
 
 
 def _lama_body(model: lama.LamaGenerator, img: torch.Tensor,
-               mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+               mask: torch.Tensor, dtype: torch.dtype,
+               embeddings=(None, None)) -> torch.Tensor:
     """img (N, H, W, 3) f32 in [0, 1], mask (N, H, W, 1) binary f32 →
     the composited f32 result."""
     img = img.to(dtype) * (1.0 - mask.to(dtype))
-    out = model(img, mask.to(dtype)).float()
+    out = model(img, mask.to(dtype), *embeddings).float()
     return out * mask + (1.0 - mask) * img.float()
 
 
@@ -118,9 +124,16 @@ class LamaLargeInpainter(OfflineInpainter):
         device, not yet copied to the host."""
         dtype = self._compute_dtype(config)
         self.forwards.append(tuple(image.shape[:3]))
+        embeddings = self._embeddings(mask)
         img = self._upload(image).float() / 255.0
         msk = (self._upload(mask).float()[..., None] / 255.0 >= 0.5).float()
-        return _to_u8(_lama_body(self._model_for(dtype), img, msk, dtype))
+        return _to_u8(_lama_body(self._model_for(dtype), img, msk, dtype,
+                                 embeddings))
+
+    def _embeddings(self, mask: np.ndarray):
+        """The generator's extra stem inputs for (N, H, W) uint8 masks:
+        none for lama_large."""
+        return None, None
 
     async def _infer(self, image: np.ndarray, mask: np.ndarray,
                      config: InpainterConfig, inpainting_size: int = 1024,
@@ -162,10 +175,57 @@ class LamaLargeInpainter(OfflineInpainter):
             self._batch_forward_dispatch(imgs, masks, config))
 
 
-class LamaMPEInpainter(OfflineInpainter):
-    """lama_mpe: waits for ROADMAP A.9 (masked positional encoding)."""
+class LamaMPEInpainter(LamaLargeInpainter):
+    """lama_mpe checkpoint: 9 FFC blocks + masked positional encoding.
+
+    The checkpoint holds the generator (``gen_state_dict``) and the MPE
+    tables (``str_state_dict``), both in torch layout, loaded as they are
+    (the JAX package's loader transposes the two tables, ROADMAP §C).
+    Without a checkpoint the MPE weights are the JAX package's own init,
+    whose zero scales switch the embeddings off."""
+
+    _MODEL_MAPPING = {
+        'model': {
+            'url': 'https://github.com/zyddnys/manga-image-translator/releases'
+                   '/download/beta-0.3/inpainting_lama_mpe.ckpt',
+            'hash': 'd625aa1b3e0d0408acfd6928aa84f005867aa8dbb9162480346a4e20660786cc',
+            'file': '.',
+        },
+    }
+    _N_BLOCKS = 9
 
     def __init__(self):
-        raise NotImplementedError(
-            'inpainter "lama_mpe" is not ported yet (ROADMAP A.9: other '
-            'inpainters)')
+        super().__init__()
+        self.mpe: Optional[lama.MPE] = None
+        # (crops, host ms) of every mask encoding, in order
+        self.encodings: List[Tuple[int, float]] = []
+
+    async def _load(self, device: str):
+        n_blocks = self._N_BLOCKS
+        sd = self.load_state_dict('model', init_fn=lambda: {
+            'gen_state_dict': lama.init_state_dict(n_blocks)})
+        self.device = torch.device(device)
+        self.set_model(lama.fold_bn(lama.build_lama(n_blocks, _pick_gen(sd))))
+        str_sd = sd.get('str_state_dict') if isinstance(sd, dict) else None
+        self.set_mpe(lama.build_mpe(str_sd if str_sd is not None
+                                    else lama.mpe_init_state_dict()))
+
+    def set_mpe(self, mpe: lama.MPE) -> None:
+        """Use ``mpe`` (f32) on this inpainter's device."""
+        self.mpe = mpe.to(self.device).eval()
+
+    async def _unload(self):
+        await super()._unload()
+        self.mpe = None
+
+    def _embeddings(self, mask: np.ndarray):
+        """The BFS encoding of each (H, W) uint8 mask (binarised at 0.5, as
+        the generator's mask) on the host, embedded on the device."""
+        t0 = time.perf_counter()
+        mask_bin = ((mask.astype(np.float32) / 255.0) >= 0.5).astype(
+            np.float32)
+        encs = [lama.masked_position_encoding(m) for m in mask_bin]
+        self.encodings.append((len(encs), (time.perf_counter() - t0) * 1e3))
+        rel_pos = self._upload(np.stack([e[0] for e in encs]))
+        direct = self._upload(np.stack([e[1] for e in encs]))
+        return self.mpe(rel_pos, direct)

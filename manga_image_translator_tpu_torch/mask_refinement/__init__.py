@@ -60,52 +60,68 @@ def _pad_n(n: int) -> int:
     return -(-n // 32) * 32
 
 
+def _tiles(jobs):
+    """(job index, y, x, rgb tile, mask tile) of every job, a crop larger
+    than the CRF bucket cap (1024) split into tiles of at most the cap."""
+    cap = _bucket(1 << 30)
+    for idx, (rgbimg, rawmask) in enumerate(jobs):
+        h, w = rawmask.shape[:2]
+        for y in range(0, h, cap):
+            for x in range(0, w, cap):
+                yield (idx, y, x, rgbimg[y:y + cap, x:x + cap],
+                       rawmask[y:y + cap, x:x + cap])
+
+
 def refine_masks_batched(jobs, device='cpu') -> List[np.ndarray]:
     """Device CRF refinement of many textline crops in few dispatches.
 
     ``jobs``: list of ``(rgb (h,w,3) uint8, rawmask (h,w) uint8)``; returns
-    refined uint8 masks in job order. The reference refines each textline
-    with its own pydensecrf call (text_mask_utils.py:96-195); dispatching a
-    device kernel per line costs ~4 synchronous host<->device interactions
-    each. Here same-bucket crops stack into ONE batched kernel call and
-    every bucket's call is dispatched before any result is pulled, so a
-    ~24-line page needs a handful of round trips instead of ~100.
+    refined uint8 masks of the jobs' shapes, in job order. The reference
+    refines each textline with its own pydensecrf call
+    (text_mask_utils.py:96-195); dispatching a device kernel per line costs
+    ~4 synchronous host<->device interactions each. Here same-bucket crops
+    stack into ONE batched kernel call and every bucket's call is
+    dispatched before any result is pulled, so a ~24-line page needs a
+    handful of round trips instead of ~100. A crop past the buckets' cap
+    of 1024 is refined in tiles of at most 1024 (the JAX package returns
+    only its first 1024 rows and columns, and its caller then fails).
     """
+    tiles = list(_tiles(jobs))
     padded = []
     groups: dict = {}
-    for idx, (rgbimg, rawmask) in enumerate(jobs):
+    for t, (_, _, _, rgbimg, rawmask) in enumerate(tiles):
         h, w = rawmask.shape[:2]
         bh, bw = _bucket(h), _bucket(w)
-        h, w = min(h, bh), min(w, bw)
         # edge-replicated padding: zero padding would inject confident
         # background pixels whose color can alias with the text strokes
-        img_p = np.pad(rgbimg[:h, :w], ((0, bh - h), (0, bw - w), (0, 0)),
+        img_p = np.pad(rgbimg, ((0, bh - h), (0, bw - w), (0, 0)),
                        mode='edge')
-        mask_p = np.pad(rawmask[:h, :w].astype(np.float32) / 255.0,
+        mask_p = np.pad(rawmask.astype(np.float32) / 255.0,
                         ((0, bh - h), (0, bw - w)), mode='edge')
         padded.append((img_p, mask_p, h, w))
-        groups.setdefault((bh, bw), []).append(idx)
+        groups.setdefault((bh, bw), []).append(t)
 
     pending = []
     for (bh, bw), idxs in groups.items():
         n_pad = _pad_n(len(idxs))
         imgs = np.zeros((n_pad, bh, bw, 3), np.uint8)
         masks = np.zeros((n_pad, bh, bw), np.float32)
-        for row, idx in enumerate(idxs):
-            imgs[row] = padded[idx][0]
-            masks[row] = padded[idx][1]
+        for row, t in enumerate(idxs):
+            imgs[row] = padded[t][0]
+            masks[row] = padded[t][1]
         out = crf_refine_batch(torch.from_numpy(imgs).to(device),
                                torch.from_numpy(masks).to(device),
                                num_iters=5, radius=23, stride=3)
         pending.append((idxs, out))
 
-    results: List[Optional[np.ndarray]] = [None] * len(jobs)
+    results = [np.zeros(raw.shape[:2], np.uint8) for _, raw in jobs]
     for idxs, out in pending:
         out_np = out.cpu().numpy()
-        for row, idx in enumerate(idxs):
-            h, w = padded[idx][2], padded[idx][3]
-            results[idx] = ((out_np[row, :h, :w] > 0.5)
-                            .astype(np.uint8) * 255)
+        for row, t in enumerate(idxs):
+            idx, y, x = tiles[t][:3]
+            h, w = padded[t][2], padded[t][3]
+            results[idx][y:y + h, x:x + w] = (
+                (out_np[row, :h, :w] > 0.5).astype(np.uint8) * 255)
     return results
 
 

@@ -1,4 +1,4 @@
-"""LaMa FFC inpainting generator (lama_large) — PyTorch port.
+"""LaMa FFC inpainting generator (lama_large, lama_mpe) — PyTorch port.
 
 Counterpart of the JAX package's ``models/lama.py`` (reference
 ``inpainting/inpainting_lama_mpe.py``: FourierUnit :187-253,
@@ -22,6 +22,12 @@ their NHWC views without copies; ``LamaGenerator.forward`` keeps the JAX
 package's NHWC interface. The FourierUnit runs in f32 inside whatever the
 compute dtype (the reference's fp32 island); ``cast_for_compute`` leaves
 its weights in f32.
+
+lama_mpe is the same generator at 9 blocks with the masked positional
+encoding (the end of this file): ``masked_position_encoding`` (host BFS,
+copied as the JAX package has it) and ``MPE`` (the checkpoint's
+``str_state_dict``) give two embeddings that ``LamaGenerator.forward``
+adds to the stem's output.
 """
 from __future__ import annotations
 
@@ -319,12 +325,21 @@ class LamaGenerator(nn.Module):
         return conv2d_stream(xp.permute(0, 2, 3, 1), w, b,
                              out_dtype=torch.float32, packed=packed)
 
-    def forward(self, img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, mask: torch.Tensor,
+                rel_pos_emb: Optional[torch.Tensor] = None,
+                direct_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """img (N, H, W, 3) in [0, 1], already masked by the caller
         (``img * (1 - mask)``); mask (N, H, W, 1) binary; both in the
-        compute dtype. Returns (N, H, W, 3) f32 in [0, 1]."""
+        compute dtype. ``rel_pos_emb`` and ``direct_emb`` (lama_mpe, each
+        (N, 64, H, W) from ``MPE``) are added to the stem's output in its
+        dtype, in that order (JAX ``lama_generator_forward``). Returns (N,
+        H, W, 3) f32 in [0, 1]."""
         x = torch.cat([img, mask], dim=-1)
         x_l = self._stem(x)
+        if rel_pos_emb is not None:
+            x_l = x_l + rel_pos_emb.to(x_l.dtype)
+        if direct_emb is not None:
+            x_l = x_l + direct_emb.to(x_l.dtype)
         x_g = None
         for i in (2, 3, 4):
             x_l, x_g = self.model[i](x_l, x_g)
@@ -468,3 +483,113 @@ def init_state_dict(n_blocks: int = N_BLOCKS) -> Dict[str, torch.Tensor]:
     conv(f'model.{up0 + 3 * N_DOWN + 1}', 7, 7, NGF, 3)
     return torch_state_dict_from_jax(params,
                                      transposed_conv_patterns(n_blocks))
+
+
+# ---------------------------------------------------------------------------
+# MPE (masked positional encoding): the lama_mpe variant
+# ---------------------------------------------------------------------------
+
+MPE_POSITIONS = 128
+MPE_DIM = 64
+# 2-D embedding tables, which the JAX → torch bridge must not transpose
+EMBEDDING_PATTERNS = (r'rel_pos_emb\.weight', r'direct_emb\.weight')
+
+
+def masked_position_encoding(mask: np.ndarray
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host BFS giving (rel_pos ids (H, W), direction one-hots (H, W, 4))
+    for a binary (H, W) mask in {0, 1}: reference
+    ``load_masked_position_encoding``, copied as the JAX package has it."""
+    import cv2
+    str_size, pos_num = 256, MPE_POSITIONS
+    ori_mask = mask.astype(np.float32)
+    ori_h, ori_w = ori_mask.shape
+    m255 = (mask * 255).astype(np.uint8)
+    small = cv2.resize(m255, (str_size, str_size),
+                       interpolation=cv2.INTER_AREA)
+    small[small > 0] = 255
+    h, w = small.shape
+    mask3 = 1.0 - small / 255.0
+    pos = np.zeros((h, w), np.int32)
+    direct = np.zeros((h, w, 4), np.int32)
+    filters = [
+        np.ones((3, 3), np.float32),
+        np.array([[1, 1, 0], [1, 1, 0], [0, 0, 0]], np.float32),
+        np.array([[0, 0, 0], [1, 1, 0], [1, 1, 0]], np.float32),
+        np.array([[0, 1, 1], [0, 1, 1], [0, 0, 0]], np.float32),
+        np.array([[0, 0, 0], [0, 1, 1], [0, 1, 1]], np.float32),
+    ]
+    i = 0
+    if mask3.max() > 0:
+        while np.sum(1 - mask3) > 0:
+            i += 1
+            grown = cv2.filter2D(mask3, -1, filters[0])
+            grown[grown > 0] = 1
+            pos[(grown - mask3) == 1] = i
+            for d in range(4):
+                m = cv2.filter2D(mask3, -1, filters[1 + d])
+                m[m > 0] = 1
+                direct[(m - mask3) == 1, d] = 1
+            mask3 = grown
+    rel_pos = np.clip((pos / (str_size / 2) * pos_num).astype(np.int32),
+                      0, pos_num - 1)
+    if (ori_w, ori_h) != (w, h):
+        rel_pos = cv2.resize(rel_pos, (ori_w, ori_h),
+                             interpolation=cv2.INTER_NEAREST)
+        rel_pos[ori_mask == 0] = 0
+        direct = cv2.resize(direct, (ori_w, ori_h),
+                            interpolation=cv2.INTER_NEAREST)
+        direct[ori_mask == 0, :] = 0
+    return rel_pos, direct
+
+
+def sinusoidal_embedding_table(num: int = MPE_POSITIONS,
+                               dim: int = MPE_DIM) -> np.ndarray:
+    """MaskedSinusoidalPositionalEmbedding init (reference :439-460): sin
+    features in the first half, cos in the second (not interleaved)."""
+    pe = np.array([[pos / np.power(10000, 2 * (j // 2) / dim)
+                    for j in range(dim)] for pos in range(num)])
+    out = np.zeros((num, dim), np.float32)
+    sentinel = dim // 2 if dim % 2 == 0 else dim // 2 + 1
+    out[:, :sentinel] = np.sin(pe[:, 0::2])
+    out[:, sentinel:] = np.cos(pe[:, 1::2])
+    return out
+
+
+class MPE(nn.Module):
+    """The checkpoint's ``str_state_dict``: a 128 × 64 positional table, a
+    4 × 64 direction table and their scales ``alpha5`` / ``alpha6``
+    (reference ``MPE``). Runs in f32."""
+
+    def __init__(self):
+        super().__init__()
+        self.rel_pos_emb = nn.Embedding(MPE_POSITIONS, MPE_DIM)
+        self.direct_emb = nn.Embedding(4, MPE_DIM)
+        self.alpha5 = nn.Parameter(torch.zeros(()))
+        self.alpha6 = nn.Parameter(torch.zeros(()))
+
+    def forward(self, rel_pos: torch.Tensor, direct: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, H, W) ids + (N, H, W, 4) one-hots → two (N, 64, H, W) f32
+        embeddings (channels_last memory), scaled by alpha5 / alpha6."""
+        rel = self.rel_pos_emb.weight[rel_pos.long()] * self.alpha5
+        dr = torch.einsum('bhwf,fe->bhwe', direct.float(),
+                          self.direct_emb.weight) * self.alpha6
+        return rel.permute(0, 3, 1, 2), dr.permute(0, 3, 1, 2)
+
+
+def mpe_init_state_dict() -> Dict[str, torch.Tensor]:
+    """The MPE weights without a checkpoint, exactly as the JAX package
+    makes them: the sinusoidal table, ``RandomState(3)`` directions, both
+    scales 0 (so the embeddings vanish)."""
+    return {'rel_pos_emb.weight': torch.from_numpy(
+                sinusoidal_embedding_table()),
+            'direct_emb.weight': torch.from_numpy(
+                np.random.RandomState(3).randn(4, MPE_DIM)
+                .astype(np.float32)),
+            'alpha5': torch.zeros(()), 'alpha6': torch.zeros(())}
+
+
+def build_mpe(sd: Dict[str, torch.Tensor], device='cpu') -> MPE:
+    """Strict load of a ``str_state_dict`` in torch layout."""
+    return load_state_dict_into(MPE(), sd).to(device).eval()

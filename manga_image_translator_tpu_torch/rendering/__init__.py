@@ -7,7 +7,7 @@ page with alpha compositing (:264-410). Host-side by design (glyph
 rasterization); the per-region composite is vectorized numpy.
 
 A copy of the JAX package's ``rendering/__init__.py`` (host only, no
-device work); ``gimp_render`` is not ported yet (ROADMAP A.6).
+device work); the layered xcf/psd/pdf export is ``gimp_render.py``.
 """
 from __future__ import annotations
 

@@ -70,6 +70,5 @@ class GIMPFormat(ExportFormat):
     SUPPORTED_FORMATS = ['xcf', 'psd', 'pdf']
 
     def _save(self, result, dest, ctx):
-        raise NotImplementedError(
-            'GIMP-backed export is not ported yet (ROADMAP A.6: host '
-            'rendering modules)')
+        from .rendering.gimp_render import gimp_render
+        gimp_render(dest, ctx)

@@ -15,9 +15,10 @@ Field numbers (onnx.proto3):
 
 A copy of the JAX package's module (numpy only). ``utils/spm_lite`` reads
 sentencepiece models with its wire parser (``_fields``, ``_read_varint``);
-the rest is the reader the PaddleOCR detector (ROADMAP A.10) loads its ONNX
-weights with (the reference runs them via the
-``rusty-manga-image-translator`` ORT wheel — detection/common_rust.py:14-63).
+the rest is the reader the PaddleOCR detector (``detection/paddle.py``,
+through ``detection/paddle_onnx.py``) loads its ONNX weights with (the
+reference runs them via the ``rusty-manga-image-translator`` ORT wheel —
+detection/common_rust.py:14-63).
 """
 from __future__ import annotations
 

@@ -55,7 +55,9 @@ def torch_state_dict_from_jax(params: Dict[str, object],
                 and not _is_norm_stat(key)
                 and not any(r.search(key) for r in e_res)):
             arr = arr.T                                     # (I,O) → (O,I)
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        # ascontiguousarray makes a 0-d scalar (MPE's alphas) 1-d
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)
+                                    .reshape(arr.shape))
     return out
 
 

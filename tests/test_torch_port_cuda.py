@@ -3,8 +3,9 @@ decoder step, K3 char-head top-k, K4 FourierUnit, K5 streaming conv)
 against its plain PyTorch version on the same CUDA inputs, at small,
 ragged and full-width shapes, the wrappers' refusals, K2 and K3's one
 launch per call, the beam search's ancestry table against a physical
-reorder of the cache, and the ct2 transformer of the translators (plain
-PyTorch) on the card against the CPU.
+reorder of the cache, and the ct2 transformer of the translators and the
+networks of the other detectors and inpainters (plain PyTorch; LaMa-MPE
+through K4 and K5) on the card against the CPU.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -525,3 +526,88 @@ def test_ct2_transformer_on_card_matches_cpu(dev, beam):
         kw = dict(beam_size=beam, max_len=24, target_prefix=prefix)
         assert card.translate_batch(batch, **kw) == cpu.translate_batch(
             batch, **kw)
+
+
+def _backend_case(name, rs):
+    """(model on the CPU in f32, forward(model, x), the input) of each
+    network of the other detectors and inpainters, at test size; the MPE
+    generator with both scales at 0.5."""
+    from manga_image_translator_tpu_torch.models import (aot, craft, ctd,
+                                                         dbnet_convnext,
+                                                         paddle_det)
+    if name == 'ctd':
+        return (ctd.build_ctd('cpu', ctd.init_state_dict()),
+                lambda m, x: ctd.ctd_forward(m, x),
+                (rs.rand(1, 256, 192, 3).astype(np.float32),))
+    if name == 'craft':
+        nets = torch.nn.ModuleList([
+            craft.build(craft.CRAFT, 'cpu', craft.init_state_dict()),
+            craft.build(craft.RefineNet, 'cpu',
+                        craft.init_refiner_state_dict())])
+        return (nets, lambda m, x: craft.craft_forward(m[0], m[1], x),
+                (rs.randn(1, 160, 128, 3).astype(np.float32),))
+    if name == 'dbconvnext':
+        return (dbnet_convnext.build_dbnet_convnext(
+                    'cpu', dbnet_convnext.init_state_dict()),
+                dbnet_convnext.dbnet_convnext_forward,
+                (rs.rand(1, 128, 256, 3).astype(np.float32) * 2 - 1,))
+    if name == 'paddle':
+        return (paddle_det.build_paddle_det('cpu',
+                                            paddle_det.init_state_dict()),
+                paddle_det.paddle_det_forward,
+                (rs.randn(1, 160, 96, 3).astype(np.float32),))
+    mask = (rs.rand(1, 64, 96, 1) < 0.3).astype(np.float32)
+    if name == 'aot':
+        img = (rs.rand(1, 64, 96, 3).astype(np.float32) * 2 - 1) * (1 - mask)
+        return (aot.build_aot('cpu', aot.init_state_dict()),
+                lambda m, i, k: m(i, k), (img, mask))
+    # lama_mpe: 9 blocks, the MPE embeddings of the mask; each block's
+    # second FFC scaled by 0.1, as chip_smoke.py's scaled_generator: random
+    # weights otherwise saturate the sigmoid (outputs 0 or 1) and amplify
+    # what is left
+    gen = lama.build_lama(9, lama.init_state_dict(9))
+    with torch.no_grad():
+        for i in range(9):
+            ffc = gen.model[5 + i].conv2.ffc
+            for conv in (ffc.convl2l, ffc.convg2l, ffc.convl2g,
+                         ffc.convg2g.conv2):
+                conv.weight.mul_(0.1)
+    sd = lama.mpe_init_state_dict()
+    sd['alpha5'] = sd['alpha6'] = torch.tensor(0.5)
+    nets = torch.nn.ModuleList([gen, lama.build_mpe(sd)])
+    rel, direct = lama.masked_position_encoding(mask[0, ..., 0])
+    img = rs.rand(1, 64, 96, 3).astype(np.float32) * (1 - mask)
+    return (nets, lambda m, i, k, r, d: m[0](i, k, *m[1](r, d)),
+            (img, mask, rel[None], direct[None]))
+
+
+@pytest.mark.parametrize('name', ['ctd', 'craft', 'dbconvnext', 'paddle',
+                                  'aot', 'lama_mpe'])
+def test_backend_network_on_card_matches_cpu(dev, name):
+    """Each network of the other detectors and inpainters (plain PyTorch;
+    the MPE generator through K4 and K5) on the card against the same
+    weights on the CPU, f32 without TF32: max |card - cpu| within 1e-3 of
+    max |cpu| (the JAX suite's bound between two frameworks)."""
+    import copy
+    rs = np.random.RandomState(0)
+    model, fwd, inputs = _backend_case(name, rs)
+    card = copy.deepcopy(model).to(dev)
+    if name == 'lama_mpe':
+        card[0].to(memory_format=lama.CHANNELS_LAST)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = fwd(model, *[torch.from_numpy(x) for x in inputs])
+            got = fwd(card, *[torch.from_numpy(x).to(dev) for x in inputs])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    for r, g in zip(ref, got):
+        assert g.is_cuda and g.shape == r.shape
+        err = float((g.cpu().float() - r.float()).abs().max())
+        assert err <= 1e-3 * float(r.abs().max()), (name, err)
+    if name == 'lama_mpe':
+        assert float(((ref[0] > 0.01) & (ref[0] < 0.99)).float().mean()) > 0.5

@@ -67,6 +67,95 @@ def test_ocr48_round_trip(ocr_params):
     load_state_dict_into(ocr48.OCR48(64), sd)
 
 
+def _new_models():
+    """(JAX init_params, the port's ``init_state_dict``, its module, the
+    bridge's and the JAX converter's keyword arguments) of each model of
+    the other detectors and inpainters, made on demand (the dbconvnext
+    has ~150 M parameters)."""
+    from manga_image_translator_tpu.models import aot as jax_aot
+    from manga_image_translator_tpu.models import craft as jax_craft
+    from manga_image_translator_tpu.models import ctd as jax_ctd
+    from manga_image_translator_tpu.models import \
+        dbnet_convnext as jax_cnx
+    from manga_image_translator_tpu.models import lama as jax_lama
+    from manga_image_translator_tpu.models import paddle_det as jax_paddle
+    from manga_image_translator_tpu_torch.models import (aot, craft, ctd,
+                                                         dbnet_convnext,
+                                                         lama, paddle_det)
+    return {
+        'aot': (jax_aot.init_params, aot.init_state_dict, aot.AOTGenerator,
+                dict(transposed_conv_patterns=aot.TRANSPOSED_CONV_PATTERNS),
+                dict(transposed_conv_patterns=(
+                    jax_aot.TRANSPOSED_CONV_PATTERNS))),
+        'ctd': (jax_ctd.init_params, ctd.init_state_dict,
+                ctd.ComicTextDetectorNet,
+                dict(transposed_conv_patterns=ctd.TRANSPOSED_CONV_PATTERNS),
+                dict(transposed_conv_patterns=(
+                    jax_ctd.TRANSPOSED_CONV_PATTERNS))),
+        'craft': (jax_craft.init_params, craft.init_state_dict, craft.CRAFT,
+                  {}, {}),
+        'craft_refiner': (jax_craft.init_refiner_params,
+                          craft.init_refiner_state_dict, craft.RefineNet,
+                          {}, {}),
+        'dbconvnext': (
+            jax_cnx.init_params, dbnet_convnext.init_state_dict,
+            dbnet_convnext.DBNetConvNext,
+            dict(transposed_conv_patterns=(
+                dbnet_convnext.TRANSPOSED_CONV_PATTERNS)),
+            dict(transposed_conv_patterns=jax_cnx.TRANSPOSED_CONV_PATTERNS)),
+        'paddle': (jax_paddle.init_params, paddle_det.init_state_dict,
+                   paddle_det.PaddleDet,
+                   dict(transposed_conv_patterns=(
+                       paddle_det.TRANSPOSED_CONV_PATTERNS)),
+                   # the JAX conv_t reads the converted HWIO layout too
+                   dict(transposed_conv_patterns=(
+                       paddle_det.TRANSPOSED_CONV_PATTERNS))),
+        'lama_mpe_9': (
+            lambda: jax_lama.init_params(9),
+            lambda: lama.init_state_dict(9), lambda: lama.LamaGenerator(9),
+            dict(transposed_conv_patterns=lama.transposed_conv_patterns(9)),
+            dict(transposed_conv_patterns=(
+                jax_lama.TRANSPOSED_CONV_PATTERNS_FOR_BLOCKS[9]))),
+    }
+
+
+@pytest.mark.parametrize('name', ['aot', 'ctd', 'craft', 'craft_refiner',
+                                  'dbconvnext', 'paddle', 'lama_mpe_9'])
+def test_new_model_round_trip(name):
+    """JAX init_params → torch state dict → JAX params is exact; the port's
+    module takes every key strictly; its own ``init_state_dict`` is the
+    same draws (so its random weights are the JAX package's)."""
+    jax_init, port_init, module, kw, jax_kw = _new_models()[name]
+    params = _np(jax_init())
+    sd = torch_state_dict_from_jax(params, **kw)
+    _assert_round_trip(params, sd, **jax_kw)
+    load_state_dict_into(module(), sd)
+    own = port_init()
+    assert set(own) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(own[k], v), k
+
+
+def test_mpe_tables_round_trip():
+    """The MPE tables are embeddings (not transposed), the scales 0-d."""
+    from manga_image_translator_tpu.models import lama as jax_lama
+    from manga_image_translator_tpu_torch.models import lama
+    params = {'rel_pos_emb.weight': jax_lama.sinusoidal_embedding_table(),
+              'direct_emb.weight': np.random.RandomState(3).randn(4, 64)
+              .astype(np.float32),
+              'alpha5': np.float32(0.5), 'alpha6': np.zeros((), np.float32)}
+    sd = torch_state_dict_from_jax(
+        params, embedding_patterns=lama.EMBEDDING_PATTERNS)
+    assert sd['alpha5'].shape == () and sd['rel_pos_emb.weight'].shape == (
+        128, 64)
+    _assert_round_trip({k: np.asarray(v) for k, v in params.items()}, sd,
+                       embedding_patterns=lama.EMBEDDING_PATTERNS)
+    mpe = lama.build_mpe(sd)
+    init = lama.mpe_init_state_dict()
+    for k in ('rel_pos_emb.weight', 'direct_emb.weight'):
+        assert torch.equal(mpe.state_dict()[k], init[k])
+
+
 def test_load_rejects_missing_and_misshaped(ocr_params):
     sd = torch_state_dict_from_jax(
         ocr_params, embedding_patterns=ocr48.EMBEDDING_PATTERNS)
@@ -81,8 +170,9 @@ def test_load_rejects_missing_and_misshaped(ocr_params):
 
 
 def test_port_never_imports_jax():
-    """The port's main path, CLI and ct2 translators import neither jax nor
-    the JAX package, nor the packages only other translators need; the
+    """The port's main path, CLI, ct2 translators, the other detectors and
+    inpainters and the GIMP export import neither jax nor the JAX package,
+    nor the packages only other translators need; the
     serving entry points (gateway, executor, ws worker, studio) import
     neither jax nor the JAX package (a fresh interpreter: this test process
     already has jax)."""
@@ -108,6 +198,21 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.translators.selective\n'
         'import manga_image_translator_tpu_torch.translators.hf_offline\n'
         'import manga_image_translator_tpu_torch.utils.spm_lite\n'
+        '# the other detectors, inpainters and the GIMP export\n'
+        'import manga_image_translator_tpu_torch.detection.ctd\n'
+        'import manga_image_translator_tpu_torch.detection.ctd_textmask\n'
+        'import manga_image_translator_tpu_torch.detection.craft\n'
+        'import manga_image_translator_tpu_torch.detection.dbnet_convnext\n'
+        'import manga_image_translator_tpu_torch.detection.paddle\n'
+        'import manga_image_translator_tpu_torch.detection.paddle_onnx\n'
+        'import manga_image_translator_tpu_torch.models.ctd\n'
+        'import manga_image_translator_tpu_torch.models.craft\n'
+        'import manga_image_translator_tpu_torch.models.dbnet_convnext\n'
+        'import manga_image_translator_tpu_torch.models.paddle_det\n'
+        'import manga_image_translator_tpu_torch.models.aot\n'
+        'import manga_image_translator_tpu_torch.inpainting.inpainting_aot\n'
+        'import manga_image_translator_tpu_torch.rendering.gimp_render\n'
+        'import manga_image_translator_tpu_torch.save\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
