@@ -51,7 +51,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the ``local`` CLI with ``ctd`` + ``lama_mpe`` (K1-K5 must launch, only
    9-block MPE forwards) and with ``craft`` + ``default`` (AOT; K1-K3
    must launch, K4 and K5 not), then ``dbconvnext`` and ``paddle``
-   through ``detection.dispatch``;
+   through ``detection.dispatch``; the other OCRs, the upscalers and the
+   colorizer (``extras``): each network (ESRGAN at nb 6 and 23, FFDNet,
+   the mc2 generator, ocr32, ocr48_ctc, upconv_7, a cunet-style ncnn
+   graph) on the card against the CPU within 1e-3 of max |cpu|, one
+   724x1024 scan through the ``local`` CLI with colorizer ``mc2``,
+   upscaler ``esrgan`` at ratio 2 and OCR ``32px`` (K1 must launch in
+   detection and in mask refinement, K4 and K5 in LaMa, K2 and K3 not),
+   then OCR → render on the upscaled page's known boxes, ``48px_ctc`` and
+   ``mocr`` (its text model stubbed; K2 and K3 must launch) through
+   ``ocr.dispatch``, ``4xultrasharp`` and ``waifu2x`` through
+   ``upscaling.dispatch``; K1 on the upscaled page and the generator at
+   the pass's largest crop bucket against their plain versions;
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -1874,15 +1885,43 @@ def check_backend_models(rgb):
     tests/test_model_oracle.py:72), in f32, AOT in f64
     (``F64_CHECKED``). The lama_mpe generator runs K4 and K5 on the
     card."""
+    return check_card_vs_cpu(backend_models(rgb))
+
+
+# device memory the card-against-CPU checks may take beyond what is live
+# when they start (see check_card_vs_cpu)
+CHECK_HEADROOM = 4 << 30
+
+
+def check_card_vs_cpu(models):
+    """Each ``name -> (model, forward, CPU inputs)`` on the card against
+    the CPU without TF32, within 1e-3 of max |cpu|; the names in
+    ``F64_CHECKED`` in f64. Returns each check's record, with the peak
+    device memory of its card forward (``max_memory_allocated``; the
+    peak counter is reset before each check)."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's f32 algorithms without TF32 can ask for tens of GB of
+    # workspace (ocr48_ctc's conv4_2 on a 16x320x3x129 input: the bulk of
+    # the 59.8 GB these checks reached uncapped on the H100): with the
+    # allocator capped, such a request fails and PyTorch takes the next
+    # algorithm cuDNN offers
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(min(1.0, (
+        torch.cuda.memory_allocated() + CHECK_HEADROOM)
+        / torch.cuda.get_device_properties(0).total_memory))
     checks = {}
     try:
-        for name, (model, fwd, inputs) in backend_models(rgb).items():
+        for name, (model, fwd, inputs) in models.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             rel, cpu_s, ref = _card_vs_cpu(model, fwd, inputs)
             checks[name] = {'shape': [list(x.shape) for x in inputs],
                             'dtype': 'float32', 'max_rel_err': rel,
-                            'cpu_s': cpu_s}
+                            'cpu_s': cpu_s,
+                            'max_memory_allocated':
+                                torch.cuda.max_memory_allocated()}
             if name in F64_CHECKED:
                 with torch.inference_mode():
                     ulp = fwd(model, *[torch.nextafter(
@@ -1899,6 +1938,7 @@ def check_backend_models(rgb):
             del model, ref
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.set_per_process_memory_fraction(1.0)
     torch.cuda.empty_cache()
     return checks
 
@@ -2024,7 +2064,8 @@ def phase_backends(cfg_path):
     inpaint_ms = {key: time_inpainter_forward(
         r['inpainter'], [tuple(f) for f in r['inpaint_forwards']], rgb)
         for key, r in configs.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [c['max_memory_allocated'] for c in models.values()])
     record = {'phase': 'backends', 'card': torch.cuda.get_device_name(0),
               'models_card_vs_cpu': models, 'checks_s': checks_s,
               'configs': configs, 'detectors': detect_ms,
@@ -2175,6 +2216,504 @@ def run_backend_config(key, chosen, cfg_path, page_dir, name, quads):
     require(not failures.records, f'{key}: the orchestrator logged '
             f'{failures.records[:3]}')
     return result
+
+
+# ---------------------------------------------------------------------------
+# the other OCRs, the upscalers and the colorizer (extras)
+# ---------------------------------------------------------------------------
+
+TF32_OPS_PER_S = 495e12        # tensor cores, TF32 inputs (cuDNN's convs)
+SCAN_W, SCAN_H = PAGE_W // 2, PAGE_H // 2      # a low-resolution scan
+# the CLI pass's stages beside the smoke's default config
+EXTRAS_CONFIG = {'colorizer': {'colorizer': 'mc2', 'colorization_size': 576,
+                               'denoise_sigma': 30},
+                 'upscale': {'upscaler': 'esrgan', 'upscale_ratio': 2},
+                 'ocr': {'ocr': '32px', 'prob': 0.0}}
+# kernels the CLI pass must launch, and must not
+EXTRAS_KERNELS = (('bilateral', 'fourier_unit', 'conv_stream'),
+                  ('decode_step', 'charhead'))
+ESRGAN_TILE = 272              # 256 + 2 x 8 px of context
+# a cunet-style ncnn graph: Split, conv branch, SE block (global pooling,
+# two InnerProducts, Sigmoid, broadcast multiply), Crop to a reference,
+# channel Concat and the 4x4 stride-2 Deconvolution
+CUNET_STYLE_PARAM = '\n'.join([
+    '7767517', '12 14',
+    'Input input 0 1 input',
+    'Split split0 1 2 input in_a in_b',
+    'Convolution conv1 1 1 in_a f1 0=64 1=3 5=1 6=1728',
+    'ReLU relu1 1 1 f1 f1r 0=0.100000',
+    'Pooling gap 1 1 f1r pooled 0=1 4=1',
+    'InnerProduct fc1 1 1 pooled fc1o 0=8 1=1 2=512 9=1',
+    'InnerProduct fc2 1 1 fc1o fc2o 0=64 1=1 2=512',
+    'Sigmoid sig 1 1 fc2o gate',
+    'BinaryOp scale 2 1 f1r gate scaled 0=2',
+    'Crop crop0 2 1 in_b scaled in_c',
+    'Concat cat 2 1 in_c scaled cat_o 0=0',
+    'Deconvolution up 1 1 cat_o out 0=3 1=4 3=2 4=3 5=1 6=3216', ''])
+
+
+def esrgan_tile_macs(nb: int) -> float:
+    """Multiply-adds of one ESRGAN forward over a 272² tile (nf 64, gc
+    32): per input pixel the first conv, nb RRDBs of three dense blocks
+    (9·(64+96+128+160)·32 + 9·192·64 each) and the trunk conv; the two
+    upsampling convs at 4x and 16x the pixels, the HR and last convs at
+    16x."""
+    rdb = 9 * (64 + 96 + 128 + 160) * 32 + 9 * 192 * 64
+    conv = 9 * 64 * 64
+    per_px = (9 * 3 * 64 + nb * 3 * rdb + conv * (1 + 4 + 16 + 16)
+              + 16 * 9 * 64 * 3)
+    return per_px * ESRGAN_TILE * ESRGAN_TILE
+
+
+class _Graph(torch.nn.Module):
+    """An ncnn layer list as a module, so that it moves like the others."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = layers
+
+    def forward(self, x):
+        from manga_image_translator_tpu_torch.utils import ncnn_lite
+        return ncnn_lite.run_graph(self.layers, x)
+
+
+def write_cunet_style(root, seed=0):
+    """The graph's .param and a .bin of seeded weights under ``root``."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.utils import ncnn_lite
+    rs = np.random.RandomState(seed)
+    blobs = []
+    for layer in ncnn_lite.parse_param(CUNET_STYLE_PARAM):
+        if layer.type in ('Convolution', 'Deconvolution', 'InnerProduct'):
+            n = int(layer.p(6 if layer.type != 'InnerProduct' else 2))
+            blobs += [np.zeros(1, np.uint32).tobytes(),
+                      (rs.randn(n) * 0.05).astype(np.float32).tobytes(),
+                      (rs.randn(int(layer.p(0))) * 0.01).astype(
+                          np.float32).tobytes()]
+    param, binf = (os.path.join(root, f'cunet_style.{e}')
+                   for e in ('param', 'bin'))
+    with open(param, 'w') as f:
+        f.write(CUNET_STYLE_PARAM)
+    with open(binf, 'wb') as f:
+        f.write(b''.join(blobs))
+    return param, binf
+
+
+def make_scan(page_dir):
+    """One of the smoke's pages at half its size (724x1024), as a scan the
+    upscaler is for; returns its name and its lines' boxes."""
+    import cv2
+    import numpy as np
+    full_dir = os.path.join(WORK, 'extras_full')
+    boxes = make_pages(full_dir, 1)
+    full = cv2.imread(os.path.join(full_dir, 'page0.png'))
+    os.makedirs(page_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(page_dir, 'scan0.png'),
+                cv2.resize(full, (SCAN_W, SCAN_H),
+                           interpolation=cv2.INTER_AREA))
+    return 'scan0.png', (np.array(boxes['page0.png'])
+                         * [SCAN_W / PAGE_W, SCAN_H / PAGE_H]).tolist()
+
+
+def _ocr_batch(rgb, quads, height, extra):
+    """The OCR's first chunk of crops: 16 host warps of the page's lines
+    at ``height``, padded into one width bucket (as the 32px and CTC
+    backends make it), in [-1, 1]; and their widths."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.ocr.model_48px import bucket_width
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    crops = [Quadrilateral(np.array(q), '', 1.0).get_transformed_region(
+        rgb, 'h', height) for q in quads[:16]]
+    widths = [c.shape[1] for c in crops]
+    bw = bucket_width(max(widths) + extra)
+    batch = np.zeros((16, height, bw, 3), np.uint8)
+    for i, c in enumerate(crops):
+        batch[i, :, :min(c.shape[1], bw)] = c[:, :bw]
+    return (torch.from_numpy(batch).float() / 127.5 - 1.0,
+            torch.tensor([min(w, bw) for w in widths]))
+
+
+def extras_models(rgb, quads):
+    """name -> (f32 model on the CPU, forward(model, *inputs), CPU inputs)
+    of each network of the other OCRs, the upscalers and the colorizer at
+    full width, on the scan's pixels: ESRGAN at nb 6 (the 'esrgan' key)
+    and 23 (4x-UltraSharp) on one 272² tile, FFDNet on a 512² crop, the
+    mc2 generator on the 576x832 sketch the colorizer makes of the scan,
+    ocr32's memory and first-step log-probs and ocr48_ctc's log-probs on
+    the first 16 lines, upconv_7 on a context-padded 256² crop and the
+    cunet-style ncnn graph on a 256² crop."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.colorization.\
+        manga_colorization_v2 import resize_pad
+    from manga_image_translator_tpu_torch.models import (esrgan, mc2, ocr32,
+                                                         ocr48_ctc, waifu2x)
+    from manga_image_translator_tpu_torch.ocr.model_48px import \
+        _placeholder_dictionary
+    from manga_image_translator_tpu_torch.utils import ncnn_lite
+    f = rgb.astype(np.float32) / 255.0
+    t = ESRGAN_TILE
+    tile = torch.from_numpy(np.ascontiguousarray(f[:t, :t, ::-1]))[None]
+    out = {f'esrgan_{nb}': (esrgan.build_esrgan(esrgan.init_state_dict(nb)),
+                            esrgan.esrgan_forward, (tile,))
+           for nb in (6, 23)}
+    out['ffdnet'] = (mc2.build_ffdnet(mc2.init_ffdnet_state_dict()),
+                     mc2.ffdnet_rgb_forward,
+                     (torch.from_numpy(np.ascontiguousarray(f[:512, :512]))[
+                         None], torch.tensor([30 / 255.0])))
+    gray, _ = resize_pad(f, 576)
+    sketch = np.concatenate([gray, np.zeros(gray.shape[:2] + (4,),
+                                            np.float32)], -1)
+    out['mc2_generator'] = (
+        mc2.build_generator(mc2.init_generator_state_dict()),
+        lambda m, s: mc2.generator_forward(m, s)[0],
+        (torch.from_numpy(np.ascontiguousarray(sketch))[None],))
+    v = len(_placeholder_dictionary())
+
+    def ocr32_forward(m, img, widths):
+        mem, mask = ocr32.compute_memory(m, img, widths)
+        dec = ocr32._Decoder(m, mem, mask, 4)
+        step = dec.step(torch.full((img.shape[0],), ocr32.START_TOK,
+                                   device=img.device), 0)
+        return mem, ocr32.char_logprobs(m, step)
+    out['ocr32'] = (ocr32.build_ocr32(v, 'cpu', ocr32.init_state_dict(v)),
+                    ocr32_forward, _ocr_batch(rgb, quads, 32, 0))
+    out['ocr48_ctc'] = (
+        ocr48_ctc.build_ocr48_ctc(v, 'cpu', ocr48_ctc.init_state_dict(v)),
+        ocr48_ctc.ctc_forward, _ocr_batch(rgb, quads, 48, 128)[:1])
+    crop = torch.from_numpy(np.ascontiguousarray(f[:256, :256])).permute(
+        2, 0, 1)[None]
+    c = waifu2x.CONTEXT
+    out['upconv7'] = (waifu2x.build_upconv7(waifu2x.init_state_dict()),
+                      lambda m, x: m(x),
+                      (torch.nn.functional.pad(crop, (c, c, c, c),
+                                               mode='replicate'),))
+    graph = ncnn_lite.load_ncnn(*write_cunet_style(WORK))
+    out['ncnn_cunet_style'] = (_Graph(graph), lambda m, x: m(x), (crop,))
+    return out
+
+
+def phase_extras(cfg_path):
+    """The other OCRs, the upscalers and the colorizer on the card
+    (``extras``):
+
+    1. each network against the CPU (``extras_models``, within 1e-3 of max
+       |cpu| without TF32);
+    2. the scan through the ``local`` CLI with colorizer ``mc2``
+       (colorization_size 576, denoise_sigma 30), upscaler ``esrgan`` at
+       ratio 2 and OCR ``32px``, every other stage the smoke's default
+       (``run_extras_cli``): the launch counters set to 0 just before and
+       read just after; K1 must launch in detection and in mask
+       refinement, K4 and K5 in LaMa, K2 and K3 not at all;
+    3. ``48px_ctc`` and ``mocr`` (its text model stubbed: no weights and
+       no ``transformers`` here; K2 and K3 must launch for its colours)
+       through ``ocr.dispatch`` on the upscaled page's known lines, and
+       ``4xultrasharp`` at ratio 4 and ``waifu2x`` at ratio 2 through
+       ``upscaling.dispatch`` on the scan.
+
+    Prints the ``extras`` line: the CLI pass's stage ms, the ESRGAN tiles
+    and device ms per tile (CUDA events, TF32 as the pipeline runs them)
+    at nb 6 and 23 beside their bound, the FFDNet and generator forwards'
+    device ms at the pass's shapes, the launches, peak device memory (all
+    and by part: the checks, the CLI pass, the other keys, the
+    timings)."""
+    import numpy as np
+    from PIL import Image
+    from manga_image_translator_tpu_torch import ocr, upscaling
+    from manga_image_translator_tpu_torch.config import (Ocr, OcrConfig,
+                                                         Upscaler)
+    from manga_image_translator_tpu_torch.models import esrgan, mc2
+    from manga_image_translator_tpu_torch.ocr import model_manga_ocr
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    from manga_image_translator_tpu_torch.upscaling.esrgan import TILE_BATCH
+    from manga_image_translator_tpu_torch.utils.generic import load_image
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    page_dir = os.path.join(WORK, 'extras_pages')
+    name, quads = make_scan(page_dir)
+    scan = Image.open(os.path.join(page_dir, name))
+    rgb = load_image(scan)[0]
+
+    peaks = {}
+
+    def peak(part):
+        """Peak device memory since the last part ended."""
+        torch.cuda.synchronize()
+        peaks[part] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    models = check_card_vs_cpu(extras_models(rgb, quads))
+    checks_s = time.perf_counter() - t0
+    peak('checks')
+    peaks['checks'] = max([peaks['checks']] + [
+        c['max_memory_allocated'] for c in models.values()])
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg.update(copy.deepcopy(EXTRAS_CONFIG))
+    path = os.path.join(WORK, 'config_extras.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    cli = run_extras_cli(path, page_dir, name, quads)
+    peak('cli')
+
+    # the other keys
+    up_rgb = np.asarray(Image.open(cli['upscaled_path']).convert('RGB'))
+    others = {}
+    load_text, read_text = (model_manga_ocr.ModelMangaOCR._load_text_model,
+                            model_manga_ocr.ModelMangaOCR._mocr_text)
+    model_manga_ocr.ModelMangaOCR._load_text_model = lambda self: None
+    model_manga_ocr.ModelMangaOCR._mocr_text = lambda self, img: 'テスト'
+    try:
+        for key in ('48px_ctc', 'mocr'):
+            lines = [Quadrilateral(np.array(q), '', 1.0)
+                     for q in cli['upscaled_quads']]
+            torch.cuda.synchronize()
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            found = asyncio.run(ocr.dispatch(Ocr(key), up_rgb, lines,
+                                             OcrConfig(prob=0.0), 'cuda'))
+            torch.cuda.synchronize()
+            counts = cuda_build.launch_counts()
+            others[key] = {'ms': (time.perf_counter() - t0) * 1e3,
+                           'lines': len(found), 'launches': counts}
+            require(found, f'{key} read no line')
+            fresh = key == 'mocr'
+            require((counts['decode_step'] > 0 and counts['charhead'] > 0)
+                    == fresh, f'{key}: K2/K3 launches {counts}')
+            if fresh:
+                require(all(q.text == 'テスト' for q in found),
+                        'mocr: a line kept its 48px text')
+    finally:
+        model_manga_ocr.ModelMangaOCR._load_text_model = load_text
+        model_manga_ocr.ModelMangaOCR._mocr_text = read_text
+    for key, ratio in (('4xultrasharp', 4), ('waifu2x', 2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = asyncio.run(upscaling.dispatch(Upscaler(key), [scan], ratio,
+                                             'cuda'))[0]
+        torch.cuda.synchronize()
+        up = upscaling.get_upscaler(Upscaler(key))
+        require(up.device.type == 'cuda', f'{key} ran on {up.device}')
+        require(res.size == (SCAN_W * ratio, SCAN_H * ratio),
+                f'{key}: {res.size}')
+        others[f'{key}_x{ratio}'] = {
+            'ms': (time.perf_counter() - t0) * 1e3, 'size': list(res.size),
+            **({'nb': up.model.nb, 'forwards': up.forwards}
+               if key != 'waifu2x' else {})}
+        asyncio.run(upscaling.unload(Upscaler(key)))
+    peak('other_keys')
+
+    # device ms per ESRGAN tile (batches of TILE_BATCH tiles, TF32 as the
+    # pipeline runs it) and of the colorizer's two forwards at the pass's
+    # shapes
+    tiles = {}
+    f = rgb.astype(np.float32) / 255.0
+    t = ESRGAN_TILE
+    batch = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [f[:t, :t, ::-1]] * TILE_BATCH))).cuda()
+    for nb in (6, 23):
+        model = esrgan.build_esrgan(esrgan.init_state_dict(nb), 'cuda')
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: esrgan.esrgan_forward(model, batch),
+                         iters=4, warmup=1, reps=2) / TILE_BATCH
+        bound, by = bound_ms(batch[0].numel() * 4 * 17,
+                             2 * esrgan_tile_macs(nb), TF32_OPS_PER_S)
+        tiles[f'nb{nb}'] = {'ms_per_tile': ms, 'bound_ms': bound,
+                            'bound_by': by,
+                            'macs_per_tile': esrgan_tile_macs(nb)}
+        del model
+    col = cli['colorizer_forwards']
+    den_hw = next(hw for k, hw in col if k == 'ffdnet')
+    gen_hw = next(hw for k, hw in col if k == 'generator')
+    den = mc2.build_ffdnet(mc2.init_ffdnet_state_dict(), 'cuda')
+    gen = mc2.build_generator(mc2.init_generator_state_dict(), 'cuda')
+    x = torch.rand((1,) + tuple(den_hw) + (3,), device='cuda')
+    sk = torch.rand((1,) + tuple(gen_hw) + (5,), device='cuda')
+    sigma = torch.tensor([30 / 255.0], device='cuda')
+    with torch.inference_mode():
+        forward_ms = {
+            'ffdnet': cuda_ms(lambda: mc2.ffdnet_rgb_forward(den, x, sigma),
+                              iters=6, warmup=1, reps=2),
+            'generator': cuda_ms(lambda: mc2.generator_forward(gen, sk),
+                                 iters=6, warmup=1, reps=2)}
+    del den, gen
+    peak('timings')
+    record = {'phase': 'extras', 'card': torch.cuda.get_device_name(0),
+              'models_card_vs_cpu': models, 'checks_s': checks_s,
+              'cli': {k: v for k, v in cli.items() if k != 'upscaled_quads'},
+              'others': others, 'esrgan_tile': [ESRGAN_TILE] * 2,
+              'esrgan_tiles_per_forward': TILE_BATCH,
+              'esrgan_ms_per_tile': tiles,
+              'colorizer_forward_ms': forward_ms,
+              'colorizer_shapes': {'ffdnet': den_hw, 'generator': gen_hw},
+              'max_memory_allocated': max(peaks.values()),
+              'max_memory_allocated_by_part': peaks,
+              'seconds': time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
+def check_extras_kernels(results, extras):
+    """K1 on the upscaled page, which the CLI pass's detection and mask
+    refinement filter whole, against its plain version, at most 1 gray,
+    and timed; the 18-block generator at the largest crop bucket the
+    pass's inpainting ran, kernels against the plain routes as check_lama
+    holds it."""
+    import numpy as np
+    from PIL import Image
+    from manga_image_translator_tpu_torch.ops import bilateral
+    cli = extras['cli']
+    page = torch.from_numpy(np.asarray(
+        Image.open(cli['upscaled_path']).convert('RGB'))).cuda()[None]
+    got = bilateral.bilateral_filter_batch(page)
+    ref = bilateral.bilateral_filter_ref(page)
+    torch.cuda.synchronize()
+    err = int((got.int() - ref.int()).abs().max())
+    emit({'phase': 'check', 'kernel': 'bilateral', 'at': 'upscaled_page',
+          'shape': list(page.shape), 'max_abs_err': err, 'tol': 1})
+    require(err <= 1, f'bilateral at the upscaled page: {err} gray > 1')
+    results['bilateral']['max_abs_err'] = max(
+        results['bilateral']['max_abs_err'], err)
+    n, h, w = page.shape[:3]
+    taps = len(bilateral.window_offsets(8)) - 1
+    pixels = n * h * w
+    r = {'shape': list(page.shape), 'data': 'colorized, upscaled scan'}
+    r['ms'] = cuda_ms(lambda: bilateral.bilateral_filter_batch(page))
+    r['plain_ms'] = cuda_ms(lambda: bilateral.bilateral_filter_ref(page),
+                            iters=5, warmup=1)
+    r['library_ms'] = None
+    r['bound_ms'], r['bound_by'] = bound_ms(
+        2 * pixels * 3, pixels * (taps * 7 + taps // 2 * 6 + 12),
+        F32_OPS_PER_S)
+    results['bilateral']['at_upscaled_page'] = r
+    del page, got, ref
+    largest = max(cli['inpaint_forwards'], key=lambda f: f[0] * f[1] * f[2])
+    check_generator(tuple(largest), 'extras_largest_bucket')
+
+
+def run_extras_cli(cfg_path, page_dir, name, quads):
+    """The scan through the ``local`` CLI's translator, then the known-box
+    pass on its upscaled page (the scan's lines scaled as the colorizer
+    and the upscaler scaled the page), the launch counters set to 0 just
+    before and read just after; K1's launches are also counted inside the
+    detection and mask-refinement stages."""
+    import numpy as np
+    from manga_image_translator_tpu_torch import colorization, upscaling
+    from manga_image_translator_tpu_torch import manga_translator as mt
+    from manga_image_translator_tpu_torch.args import parser
+    from manga_image_translator_tpu_torch.config import Colorizer, Upscaler
+    from manga_image_translator_tpu_torch.mode.local import (
+        MangaTranslatorLocal, load_config_file)
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    dest = os.path.join(OUT, 'extras')
+    args = vars(parser.parse_args(['local', '-i', page_dir, '--dest', dest,
+                                   '--config-file', cfg_path,
+                                   '--overwrite']))
+    stage_ms = {}
+    k1 = collections.Counter()
+    pages = {}
+
+    async def hook(state, finished):
+        if state.startswith('stage-time:'):
+            _, stage, ms = state.split(':')
+            stage_ms[stage] = stage_ms.get(stage, 0.0) + float(ms)
+
+    def counting(fn, stage):
+        async def run(config, ctx):
+            before = cuda_build.LAUNCHES['bilateral']
+            out = await fn(config, ctx)
+            k1[stage] += cuda_build.LAUNCHES['bilateral'] - before
+            pages.setdefault(stage, out)
+            return out
+        return run
+
+    decodes = []
+
+    async def drive():
+        translator = MangaTranslatorLocal(args)
+        require(translator.device == 'cuda',
+                f'translator runs on {translator.device}, not cuda')
+        translator.add_progress_hook(hook)
+        for attr, stage in (('_run_colorizer', 'colorize'),
+                            ('_run_upscaling', 'upscale'),
+                            ('_run_detection', 'detect'),
+                            ('_run_mask_refinement', 'mask_refine')):
+            setattr(translator, attr,
+                    counting(getattr(translator, attr), stage))
+        await translator.translate_path(args['input'], dest, args)
+        config = load_config_file(cfg_path)
+        require(config.colorizer.colorizer == Colorizer.mc2
+                and config.upscale.upscaler == Upscaler.esrgan
+                and config.upscale.upscale_ratio == 2
+                and config.ocr.ocr.value == '32px',
+                f'the extras config runs {config}')
+        up = pages['upscale']
+        sx, sy = up.size[0] / SCAN_W, up.size[1] / SCAN_H
+        scaled = [[[x * sx, y * sy] for x, y in q] for q in quads]
+        up_path = os.path.join(WORK, 'extras_upscaled.png')
+        up.save(up_path)
+        extra = await _known_quads_pass(translator, config, up_path, scaled,
+                                        decodes)
+        return extra, scaled, up_path
+
+    torch.cuda.synchronize()
+    colorizer = colorization.get_colorizer(Colorizer.mc2)
+    with _Failures(mt.logger) as failures, recording_decodes(decodes):
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        extra, scaled, up_path = asyncio.run(drive())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = cuda_build.launch_counts()
+    require(os.path.isfile(os.path.join(dest, name)),
+            f'extras: page not written: {dest}/{name}')
+    upscaler = upscaling.get_upscaler(Upscaler.esrgan)
+    col, up = pages['colorize'], pages['upscale']
+    require(colorizer.device.type == 'cuda'
+            and upscaler.device.type == 'cuda',
+            'the colorizer or the upscaler left the card')
+    require(up.size == (2 * col.size[0], 2 * col.size[1]),
+            f'upscaled {up.size} from {col.size}')
+    must, must_not = EXTRAS_KERNELS
+    for k in must:
+        require(counts[k] > 0, f'extras: kernel {k} was not launched')
+    for k in must_not:
+        require(counts[k] == 0,
+                f'extras: kernel {k} launched {counts[k]} times')
+    require(k1['detect'] > 0 and k1['mask_refine'] > 0,
+            f'extras: K1 launches by stage {dict(k1)}')
+    require(extra['ocr_lines'] == len(quads),
+            f'extras: {extra["ocr_lines"]} OCR lines of {len(quads)}')
+    require(extra['forwards'] and extra['inpainted_pixels_inside'] > 0
+            and extra['inpainted_pixels_outside'] == 0,
+            f'extras: inpainting changed {extra["inpainted_pixels_inside"]} '
+            f'pixels inside the mask, {extra["inpainted_pixels_outside"]} '
+            f'outside')
+    require(extra['drawn_regions'] > 0
+            and extra['rendered_pixels_in_boxes'] > 0
+            and extra['rendered_pixels_outside'] == 0,
+            f'extras: rendering changed {extra["rendered_pixels_in_boxes"]} '
+            f'pixels in the text boxes, {extra["rendered_pixels_outside"]} '
+            f'outside')
+    require(not failures.records,
+            f'extras: the orchestrator logged {failures.records[:3]}')
+    return {'wall_s': wall, 'scan': [SCAN_W, SCAN_H],
+            'colorized': list(col.size), 'upscaled': list(up.size),
+            'stage_ms_cli': stage_ms,
+            'stage_ms_known_boxes': extra['stage_ms'],
+            'launches': counts, 'k1_by_stage': dict(k1),
+            'esrgan_forwards': [list(f) for f in upscaler.forwards],
+            'colorizer_forwards': [(k, list(hw))
+                                   for k, hw in colorizer.forwards],
+            'ocr_lines': extra['ocr_lines'],
+            'mask_pixels': extra['mask_pixels'],
+            'inpaint_forwards': extra['forwards'],
+            'upscaled_path': up_path, 'upscaled_quads': scaled}
 
 
 def phase_breakdown():
@@ -2918,6 +3457,8 @@ def main(argv=None) -> int:
     phase_server(page_dir, cfg_path)
     phase_ws(page_dir, cfg_path)
     phase_backends(cfg_path)
+    extras = phase_extras(cfg_path)
+    check_extras_kernels(results, extras)
     phase_breakdown()
     phase_times(results, forwards, batch['forwards'])
     per_call = phase_trace()
@@ -2932,6 +3473,7 @@ def main(argv=None) -> int:
             'name': name, 'route': route, 'source': source,
             'replaces': replaces, 'launches': counts[name],
             'launches_batch': batch['launches'][name],
+            'launches_extras': extras['cli']['launches'][name],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

@@ -11,13 +11,14 @@ concurrent translation modes.
 Port notes: the stage runners dispatch into the port's own registries;
 detection, OCR, mask refinement and LaMa inpainting run on the CUDA card
 (or the CPU when a Python caller passes ``use_gpu=False``); rendering is
-host code. Stage times are taken with the device synchronised at each
-stage edge. Batch mode (``translate_batch``) detects same-config pages in
-shared forwards (one K1 launch and one DBNet forward per chunk), pools
-their text lines into shared OCR chunks, translates them in one batched
-translator call and inpaints same-config pages' crops in shared buckets;
-a page that a pre-pass cannot take runs the per-page path. Colorization
-and upscaling wait for a later slice of the port (ROADMAP A.12).
+host code; colorization (mc2) and upscaling (ESRGAN, waifu2x) run their
+networks on the device. Stage times are taken with the device synchronised
+at each stage edge. Batch mode (``translate_batch``) detects same-config
+pages in shared forwards (one K1 launch and one DBNet forward per chunk),
+pools their text lines into shared OCR chunks, translates them in one
+batched translator call and inpaints same-config pages' crops in shared
+buckets; a page that a pre-pass cannot take (a colorizer or an upscale
+ratio sends it there) runs the per-page path.
 """
 from __future__ import annotations
 
@@ -428,12 +429,19 @@ class MangaTranslator:
 
     # -- stage runners --------------------------------------------------------
     async def _run_colorizer(self, config: Config, ctx: Context):
-        raise NotImplementedError('colorization is not ported yet '
-                                  '(ROADMAP A.12)')
+        from . import colorization
+        self._mark_used('colorization', config.colorizer.colorizer)
+        return await colorization.dispatch(
+            config.colorizer.colorizer, device=self.device, image=ctx.input,
+            colorization_size=config.colorizer.colorization_size,
+            denoise_sigma=config.colorizer.denoise_sigma)
 
     async def _run_upscaling(self, config: Config, ctx: Context):
-        raise NotImplementedError('upscaling is not ported yet '
-                                  '(ROADMAP A.12)')
+        from . import upscaling
+        self._mark_used('upscaling', config.upscale.upscaler)
+        return (await upscaling.dispatch(
+            config.upscale.upscaler, [ctx.img_colorized],
+            config.upscale.upscale_ratio, self.device))[0]
 
     async def _run_detection(self, config: Config, ctx: Context):
         from . import detection

@@ -1,7 +1,8 @@
 """OCR stage: registry + dispatch (contract: reference ocr/__init__.py).
 
-The port serves the 48px recognizer; the other backends wait for ROADMAP
-A.11."""
+``48px`` is imported with the registry; ``32px``, ``48px_ctc`` and ``mocr``
+are imported when first chosen, as in the JAX package (``mocr`` imports
+``transformers`` only when it loads)."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -14,18 +15,26 @@ from .common import CommonOCR, OfflineOCR
 from .model_48px import Model48pxOCR
 
 
-def _not_ported(name: str):
+def _lazy(name):
     def factory():
-        raise NotImplementedError(
-            f'OCR "{name}" is not ported yet (ROADMAP A.11: other OCRs)')
+        if name == '32px':
+            from .model_32px import Model32pxOCR
+            return Model32pxOCR()
+        if name == '48px_ctc':
+            from .model_48px_ctc import Model48pxCTCOCR
+            return Model48pxCTCOCR()
+        if name == 'mocr':
+            from .model_manga_ocr import ModelMangaOCR
+            return ModelMangaOCR()
+        raise KeyError(name)
     return factory
 
 
 OCRS = {
-    Ocr.ocr32px: _not_ported('32px'),
+    Ocr.ocr32px: _lazy('32px'),
     Ocr.ocr48px: Model48pxOCR,
-    Ocr.ocr48px_ctc: _not_ported('48px_ctc'),
-    Ocr.mocr: _not_ported('mocr'),
+    Ocr.ocr48px_ctc: _lazy('48px_ctc'),
+    Ocr.mocr: _lazy('mocr'),
 }
 
 _ocr_cache = {}

@@ -47,6 +47,20 @@ class CommonOCR(InfererModule):
             for node in nodes:
                 yield bboxes[node], majority_dir
 
+    def _sorted_crops(self, image: np.ndarray, textlines, height: int):
+        """The lines with their directions (``_generate_text_direction``),
+        their host cv2 crops at ``height`` (the device-crop path waits for
+        ROADMAP A.14), the order to read them in (by crop width for
+        quadrilaterals), and whether the lines are quadrilaterals."""
+        quads = list(self._generate_text_direction(textlines))
+        crops = [q.get_transformed_region(image, d, height)
+                 for q, d in quads]
+        order = list(range(len(quads)))
+        is_quads = bool(quads and isinstance(quads[0][0], Quadrilateral))
+        if is_quads:
+            order.sort(key=lambda i: crops[i].shape[1])
+        return quads, crops, order, is_quads
+
     async def recognize(self, image: np.ndarray,
                         textlines: List[Quadrilateral], config: OcrConfig,
                         verbose: bool = False) -> List[Quadrilateral]:
@@ -77,6 +91,41 @@ class AvgMeter:
             self.sum += val
             self.count += 1
         return self.sum / self.count if self.count > 0 else 0
+
+
+def pad_chunk(crops: List[np.ndarray], indices: List[int], rows: int,
+              width: int, skip=None):
+    """The crops ``indices`` zero-padded into one (rows, height, width, 3)
+    uint8 batch, each cut at ``width``; each row's valid width; and the
+    rows left empty because ``skip(crop)`` held."""
+    height = crops[indices[0]].shape[0]
+    batch = np.zeros((rows, height, width, 3), np.uint8)
+    widths = np.zeros((rows,), np.int32)
+    skipped = set()
+    for i, idx in enumerate(indices):
+        if skip is not None and skip(crops[idx]):
+            skipped.add(i)
+            continue
+        w = min(crops[idx].shape[1], width)
+        batch[i, :, :w] = crops[idx][:, :w]
+        widths[i] = w
+    return batch, widths, skipped
+
+
+def set_line_result(region, txt: str, prob: float, colors) -> None:
+    """Write one recognised line (its text, probability and fg/bg colours
+    ``(fr, fg, fb, br, bg, bb)``) into its Quadrilateral, or append it to
+    its TextBlock."""
+    fr, fg, fb, br, bg, bb = colors
+    if isinstance(region, Quadrilateral):
+        region.text = txt
+        region.prob = prob
+        region.fg_r, region.fg_g, region.fg_b = fr, fg, fb
+        region.bg_r, region.bg_g, region.bg_b = br, bg, bb
+    else:
+        region.text.append(txt)
+        region.update_font_colors(np.array([fr, fg, fb]),
+                                  np.array([br, bg, bb]))
 
 
 def chunks(lst, n):

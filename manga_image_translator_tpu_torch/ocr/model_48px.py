@@ -20,7 +20,8 @@ import torch
 from ..config import OcrConfig
 from ..models import ocr48
 from ..utils.geometry import Quadrilateral
-from .common import AvgMeter, OfflineOCR, chunks
+from .common import (AvgMeter, OfflineOCR, chunks, pad_chunk,
+                     set_line_result)
 
 TEXT_HEIGHT = 48
 MAX_CHUNK = 16
@@ -113,32 +114,14 @@ class Model48pxOCR(OfflineOCR):
                      verbose: bool = False, ignore_bubble: int = 0
                      ) -> List[Quadrilateral]:
         threshold = 0.2 if config.prob is None else config.prob
-        quadrilaterals = list(self._generate_text_direction(textlines))
+        quadrilaterals, region_imgs, perm, is_quadrilaterals = \
+            self._sorted_crops(image, textlines, TEXT_HEIGHT)
         out_regions = []
-        is_quadrilaterals = bool(
-            quadrilaterals
-            and isinstance(quadrilaterals[0][0], Quadrilateral))
-
-        # host cv2 crops (the device-crop path waits for ROADMAP A.14)
-        region_imgs = [q.get_transformed_region(image, d, TEXT_HEIGHT)
-                       for q, d in quadrilaterals]
-        perm = list(range(len(quadrilaterals)))
-        if is_quadrilaterals:
-            perm = sorted(perm, key=lambda x: region_imgs[x].shape[1])
         dump_dirs = [d for _q, d in quadrilaterals] if verbose else None
         for idx, prob, txt, colors in self._read_crops(
                 region_imgs, perm, threshold, dump_dirs):
-            fr, fgc, fb, br, bgc, bb = colors
             cur_region = quadrilaterals[idx][0]
-            if isinstance(cur_region, Quadrilateral):
-                cur_region.text = txt
-                cur_region.prob = prob
-                cur_region.fg_r, cur_region.fg_g, cur_region.fg_b = fr, fgc, fb
-                cur_region.bg_r, cur_region.bg_g, cur_region.bg_b = br, bgc, bb
-            else:
-                cur_region.text.append(txt)
-                cur_region.update_font_colors(
-                    np.array([fr, fgc, fb]), np.array([br, bgc, bb]))
+            set_line_result(cur_region, txt, prob, colors)
             out_regions.append(cur_region)
 
         if is_quadrilaterals:
@@ -175,10 +158,7 @@ class Model48pxOCR(OfflineOCR):
         for idx, prob, txt, colors in self._read_crops(region_imgs, perm,
                                                        threshold):
             pi, cur_region, _d = entries[idx]
-            cur_region.text = txt
-            cur_region.prob = prob
-            (cur_region.fg_r, cur_region.fg_g, cur_region.fg_b,
-             cur_region.bg_r, cur_region.bg_g, cur_region.bg_b) = colors
+            set_line_result(cur_region, txt, prob, colors)
             out[pi].append(cur_region)
         return out
 
@@ -197,14 +177,10 @@ class Model48pxOCR(OfflineOCR):
         built = []
         ix = 0
         for indices in chunks(perm, chunk_size):
-            widths = [region_imgs[i].shape[1] for i in indices]
-            bw = bucket_width(max(widths))
-            valid_widths = np.zeros((chunk_size,), np.int32)
-            valid_widths[:len(indices)] = [min(w, bw) for w in widths]
-            batch = np.zeros((chunk_size, TEXT_HEIGHT, bw, 3), dtype=np.uint8)
+            bw = bucket_width(max(region_imgs[i].shape[1] for i in indices))
+            batch, valid_widths, _ = pad_chunk(region_imgs, indices,
+                                               chunk_size, bw)
             for i, idx in enumerate(indices):
-                w = min(region_imgs[idx].shape[1], bw)
-                batch[i, :, :w, :] = region_imgs[idx][:, :w]
                 if dump_dirs is not None:
                     self._dump_crop(batch[i], dump_dirs[idx], ix)
                 ix += 1

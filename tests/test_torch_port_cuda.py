@@ -3,9 +3,10 @@ decoder step, K3 char-head top-k, K4 FourierUnit, K5 streaming conv)
 against its plain PyTorch version on the same CUDA inputs, at small,
 ragged and full-width shapes, the wrappers' refusals, K2 and K3's one
 launch per call, the beam search's ancestry table against a physical
-reorder of the cache, and the ct2 transformer of the translators and the
+reorder of the cache, and the ct2 transformer of the translators, the
 networks of the other detectors and inpainters (plain PyTorch; LaMa-MPE
-through K4 and K5) on the card against the CPU.
+through K4 and K5) and those of the other OCRs, the upscalers and the
+colorizer on the card against the CPU.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -611,3 +612,112 @@ def test_backend_network_on_card_matches_cpu(dev, name):
         assert err <= 1e-3 * float(r.abs().max()), (name, err)
     if name == 'lama_mpe':
         assert float(((ref[0] > 0.01) & (ref[0] < 0.99)).float().mean()) > 0.5
+
+
+_CUNET_STYLE = '\n'.join([
+    '7767517', '9 10',
+    'Input input 0 1 input',
+    'Split split0 1 2 input in_a in_b',
+    'Convolution conv1 1 1 in_a f1 0=8 1=3 5=1 6=216',
+    'ReLU relu1 1 1 f1 f1r 0=0.100000',
+    'Pooling gap 1 1 f1r pooled 0=1 4=1',
+    'InnerProduct fc1 1 1 pooled fc1o 0=2 1=1 2=16 9=1',
+    'InnerProduct fc2 1 1 fc1o fc2o 0=8 1=1 2=16',
+    'Sigmoid sig 1 1 fc2o gate',
+    'BinaryOp scale 2 1 f1r gate scaled 0=2',
+    'Crop crop0 2 1 in_b scaled in_c',
+    'Concat cat 2 1 in_c scaled out 0=0',
+    'Deconvolution up 1 1 out y 0=3 1=4 3=2 4=3 5=1 6=528'])
+
+
+class _Graph(torch.nn.Module):
+    """An ncnn layer list as a module, so that it moves like the others."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = layers
+
+    def forward(self, x):
+        from manga_image_translator_tpu_torch.utils import ncnn_lite
+        return ncnn_lite.run_graph(self.layers, x)
+
+
+def _slice_case(name, rs):
+    """(f32 model on the CPU, forward(model, *inputs), numpy inputs) of
+    each network of the other OCRs, the upscalers and the colorizer, at
+    small shapes."""
+    from manga_image_translator_tpu_torch.models import (esrgan, mc2, ocr32,
+                                                         ocr48_ctc, waifu2x)
+    from manga_image_translator_tpu_torch.utils import ncnn_lite
+    if name == 'ocr48_ctc':
+        x = rs.uniform(-1, 1, (3, 48, 256, 3)).astype(np.float32)
+        return (ocr48_ctc.build_ocr48_ctc(300, 'cpu',
+                                          ocr48_ctc.init_state_dict(300)),
+                ocr48_ctc.ctc_forward, (x,))
+    if name == 'ocr32':
+        x = rs.uniform(-1, 1, (3, 32, 128, 3)).astype(np.float32)
+        vw = np.array([128, 90, 40], np.int64)
+
+        def fwd(m, img, widths):
+            mem, mask = ocr32.compute_memory(m, img, widths)
+            dec = ocr32._Decoder(m, mem, mask, 4)
+            step = dec.step(torch.full((3,), ocr32.START_TOK,
+                                       device=img.device), 0)
+            return mem, ocr32.char_logprobs(m, step)
+        return (ocr32.build_ocr32(300, 'cpu', ocr32.init_state_dict(300)),
+                fwd, (x, vw))
+    if name == 'esrgan':
+        x = rs.rand(2, 40, 48, 3).astype(np.float32)
+        return (esrgan.build_esrgan(esrgan.init_state_dict(nb=2)),
+                esrgan.esrgan_forward, (x,))
+    if name == 'upconv7':
+        x = rs.rand(1, 3, 38, 34).astype(np.float32)
+        return (waifu2x.build_upconv7(waifu2x.init_state_dict()),
+                lambda m, i: m(i), (x,))
+    if name == 'ncnn_graph':
+        layers = ncnn_lite.parse_param(_CUNET_STYLE)
+        for layer in layers:
+            if layer.type in ('Convolution', 'Deconvolution',
+                              'InnerProduct'):
+                n = int(layer.p(6 if layer.type != 'InnerProduct' else 2))
+                layer.weights['weight'] = rs.randn(n).astype(np.float32) * .2
+                layer.weights['bias'] = rs.randn(int(layer.p(0))).astype(
+                    np.float32) * .01
+        x = rs.rand(1, 3, 30, 26).astype(np.float32)
+        return _Graph(layers), lambda m, i: m(i), (x,)
+    if name == 'ffdnet':
+        x = rs.rand(1, 64, 48, 3).astype(np.float32)
+        return (mc2.build_ffdnet(mc2.init_ffdnet_state_dict()),
+                mc2.ffdnet_rgb_forward,
+                (x, np.array([30 / 255], np.float32)))
+    x = rs.rand(1, 64, 96, 5).astype(np.float32)
+    return (mc2.build_generator(mc2.init_generator_state_dict()),
+            lambda m, s: mc2.generator_forward(m, s, guide=True), (x,))
+
+
+@pytest.mark.parametrize('name', ['ocr48_ctc', 'ocr32', 'esrgan', 'upconv7',
+                                  'ncnn_graph', 'ffdnet', 'mc2_generator'])
+def test_slice_network_on_card_matches_cpu(dev, name):
+    """Each network of the other OCRs, the upscalers and the colorizer
+    (plain PyTorch) on the card against the same weights on the CPU, f32
+    without TF32: max |card - cpu| within 1e-3 of max |cpu| (the JAX
+    suite's bound between two frameworks)."""
+    import copy
+    rs = np.random.RandomState(0)
+    model, fwd, inputs = _slice_case(name, rs)
+    card = copy.deepcopy(model).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = fwd(model, *[torch.from_numpy(x) for x in inputs])
+            got = fwd(card, *[torch.from_numpy(x).to(dev) for x in inputs])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    for r, g in zip(ref, got):
+        assert g.is_cuda and g.shape == r.shape
+        err = float((g.cpu().float() - r.float()).abs().max())
+        assert err <= 1e-3 * float(r.abs().max()), (name, err)

@@ -116,11 +116,50 @@ def _new_models():
             dict(transposed_conv_patterns=lama.transposed_conv_patterns(9)),
             dict(transposed_conv_patterns=(
                 jax_lama.TRANSPOSED_CONV_PATTERNS_FOR_BLOCKS[9]))),
+        **_slice_models(),
+    }
+
+
+def _slice_models():
+    """The same for the other OCRs, the upscalers and the colorizer."""
+    from manga_image_translator_tpu.models import esrgan as jax_esrgan
+    from manga_image_translator_tpu.models import mc2 as jax_mc2
+    from manga_image_translator_tpu.models import ocr32 as jax_ocr32
+    from manga_image_translator_tpu.models import ocr48_ctc as jax_ctc
+    from manga_image_translator_tpu.models import waifu2x as jax_w2x
+    from manga_image_translator_tpu_torch.models import (esrgan, mc2, ocr32,
+                                                         ocr48_ctc, waifu2x)
+    emb = dict(embedding_patterns=ocr32.EMBEDDING_PATTERNS)
+    gen_t = dict(transposed_conv_patterns=mc2.GENERATOR_TRANSPOSED_PATTERNS)
+    return {
+        'ocr48_ctc': (lambda: jax_ctc.init_params(64),
+                      lambda: ocr48_ctc.init_state_dict(64),
+                      lambda: ocr48_ctc.OCR48CTC(64), {}, {}),
+        'ocr32': (lambda: jax_ocr32.init_params(64),
+                  lambda: ocr32.init_state_dict(64),
+                  lambda: ocr32.OCR32(64), emb,
+                  dict(embedding_patterns=jax_ocr32.EMBEDDING_PATTERNS)),
+        'esrgan_6': (lambda: jax_esrgan.init_params(nb=6),
+                     lambda: esrgan.init_state_dict(nb=6),
+                     lambda: esrgan.RRDBNet(6), {}, {}),
+        'mc2_generator': (
+            jax_mc2.init_generator_params, mc2.init_generator_state_dict,
+            mc2.Generator, gen_t,
+            dict(transposed_conv_patterns=(
+                jax_mc2.GENERATOR_TRANSPOSED_PATTERNS))),
+        'mc2_ffdnet': (jax_mc2.init_ffdnet_params,
+                       mc2.init_ffdnet_state_dict, mc2.FFDNet, {}, {}),
+        # the JAX deconvolution kernel is (kh, kw, out, in): the plain
+        # HWIO transpose gives torch's (in, out, kh, kw) and back
+        'upconv7': (jax_w2x.init_params, waifu2x.init_state_dict,
+                    waifu2x.UpConv7, {}, {}),
     }
 
 
 @pytest.mark.parametrize('name', ['aot', 'ctd', 'craft', 'craft_refiner',
-                                  'dbconvnext', 'paddle', 'lama_mpe_9'])
+                                  'dbconvnext', 'paddle', 'lama_mpe_9',
+                                  'ocr48_ctc', 'ocr32', 'esrgan_6',
+                                  'mc2_generator', 'mc2_ffdnet', 'upconv7'])
 def test_new_model_round_trip(name):
     """JAX init_params → torch state dict → JAX params is exact; the port's
     module takes every key strictly; its own ``init_state_dict`` is the
@@ -213,6 +252,23 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.inpainting.inpainting_aot\n'
         'import manga_image_translator_tpu_torch.rendering.gimp_render\n'
         'import manga_image_translator_tpu_torch.save\n'
+        '# the other OCRs, the upscalers and the colorizer\n'
+        'import manga_image_translator_tpu_torch.ocr.model_32px\n'
+        'import manga_image_translator_tpu_torch.ocr.model_48px_ctc\n'
+        'import manga_image_translator_tpu_torch.ocr.model_manga_ocr\n'
+        'import manga_image_translator_tpu_torch.models.ocr32\n'
+        'import manga_image_translator_tpu_torch.models.ocr48_ctc\n'
+        'import manga_image_translator_tpu_torch.upscaling\n'
+        'import manga_image_translator_tpu_torch.upscaling.common\n'
+        'import manga_image_translator_tpu_torch.upscaling.esrgan\n'
+        'import manga_image_translator_tpu_torch.models.esrgan\n'
+        'import manga_image_translator_tpu_torch.models.waifu2x\n'
+        'import manga_image_translator_tpu_torch.utils.ncnn_lite\n'
+        'import manga_image_translator_tpu_torch.colorization\n'
+        'import manga_image_translator_tpu_torch.colorization.common\n'
+        'import manga_image_translator_tpu_torch.colorization'
+        '.manga_colorization_v2\n'
+        'import manga_image_translator_tpu_torch.models.mc2\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
