@@ -62,7 +62,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``mocr`` (its text model stubbed; K2 and K3 must launch) through
    ``ocr.dispatch``, ``4xultrasharp`` and ``waifu2x`` through
    ``upscaling.dispatch``; K1 on the upscaled page and the generator at
-   the pass's largest crop bucket against their plain versions;
+   the pass's largest crop bucket against their plain versions; Stable
+   Diffusion (``sd``): a synthetic SD-1.5-inpaint checkpoint at the
+   published widths (f16 safetensors, ~1.07 B parameters) and a synthetic
+   wd-swinv2-style tagger written into the model directory, the UNet, VAE
+   and CLIP text tower on the card against the CPU within 1e-3 of max
+   |cpu|, the first page through the ``local`` CLI with inpainter ``sd``
+   at inpainting_size 1024 (dpmpp_2m, 15 steps, the hash tokenizer for
+   the CLIP vocabulary; K1-K3 must launch, K4 and K5 not; pixels outside
+   the mask kept), a guided UNet pair and a VAE decode at the 184x256
+   latent of the default inpainting_size, and the multi-label CTC loss
+   and gradient on the card against the CPU;
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -2716,6 +2726,562 @@ def run_extras_cli(cfg_path, page_dir, name, quads):
             'upscaled_path': up_path, 'upscaled_quads': scaled}
 
 
+# ---------------------------------------------------------------------------
+# Stable Diffusion inpainting, its tagger and the CTC loss (sd)
+# ---------------------------------------------------------------------------
+
+SD_CONFIG = {'inpainter': {'inpainter': 'sd', 'inpainting_size': 1024}}
+SD_STEPS = 15                  # dpmpp_2m's default
+SD_SEED = 20
+SD_WEIGHT_SEED = 7
+# kernels the sd pass must launch (detection, 48px OCR), and must not
+# (LaMa is not selected)
+SD_KERNELS = (('bilateral', 'decode_step', 'charhead'),
+              ('fourier_unit', 'conv_stream'))
+# the latent (h, w) of a 1448x2048 page at the default inpainting_size
+# 2048: padded to 1472x2048, 256x184 = 47,104 tokens, 11 chunks of 4096 +
+# 2,048; at the pass's inpainting_size 1024: 768x1024, 128x96
+SD_DEFAULT_LATENT = (256, 184)
+SD_PASS_LATENT = (128, 96)
+TAGGER_SIZE = 448
+TAGGER_TAGS = 9083             # 4 ratings + the general and character tags
+CTC_SHAPE = {'n': 16, 't': 128, 'v': 7935, 's': 32, 'r': 4}
+
+
+def write_sd_checkpoint(path, seed=SD_WEIGHT_SEED):
+    """A synthetic SD-1.5-inpaint checkpoint at the published widths
+    (``SDConfig()``), drawn on the card at the JAX init's scales, written
+    in f16 with the port's safetensors writer. Returns the parameter
+    count and the write seconds."""
+    from manga_image_translator_tpu_torch.models import sd
+    from manga_image_translator_tpu_torch.utils import safetensors_lite
+    t0 = time.perf_counter()
+    state = sd.init_state_dict(sd.SDConfig(), seed=seed, device='cuda',
+                               dtype=torch.float16)
+    n = sum(v.numel() for v in state.values())
+    require(all(bool(torch.isfinite(v).all()) for v in state.values()),
+            'the f16 SD weights are not finite')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    safetensors_lite.save(state, path, metadata={'format': 'pt'})
+    del state
+    torch.cuda.empty_cache()
+    return n, time.perf_counter() - t0
+
+
+def write_tagger(model_dir, seed=0):
+    """A synthetic tagger in the wd-swinv2 layout (NHWC 448x448 BGR in,
+    one sigmoid per tag out) built from the op kinds a SwinV2 export uses:
+    patch Conv, the token reshape through Shape -> Gather -> Concat ->
+    Reshape, LayerNormalization, MatMul attention with Softmax, the Erf
+    GELU, ReduceMean, Gemm and Sigmoid; and its ``selected_tags.csv``.
+    Written with ``tests/onnx_build.py``."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import onnx_build as ob
+    rs = np.random.RandomState(seed)
+    c1, c, heads, hd = 96, 384, 12, 32
+
+    def w(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    def tokens(src, dst, ch):
+        """(1, ch, h, w) -> (1, h*w, ch), the shape from the graph."""
+        return [ob.node('Shape', [src], [f'{dst}_s']),
+                ob.node('Gather', [f'{dst}_s', 'i01'], [f'{dst}_nc']),
+                ob.node('Concat', [f'{dst}_nc', 'neg1'], [f'{dst}_t'],
+                        axis=0),
+                ob.node('Reshape', [src, f'{dst}_t'], [f'{dst}_r']),
+                ob.node('Transpose', [f'{dst}_r'], [dst], perm=[0, 2, 1])]
+
+    nodes = [ob.node('Transpose', ['x'], ['xc'], perm=[0, 3, 1, 2]),
+             ob.node('Mul', ['xc', 'inv255'], ['xn']),
+             ob.node('Conv', ['xn', 'patch_w', 'patch_b'], ['p1'],
+                     strides=[4, 4]),
+             ob.node('Conv', ['p1', 'merge_w', 'merge_b'], ['p2'],
+                     strides=[4, 4])]
+    nodes += tokens('p2', 't0', c)
+    nodes += [
+        ob.node('LayerNormalization', ['t0', 'ln1_s', 'ln1_b'], ['n1'],
+                axis=-1, epsilon=1e-5),
+        ob.node('MatMul', ['n1', 'qkv_w'], ['qkv']),
+        ob.node('Reshape', ['qkv', 'qkv_shape'], ['qkv_r']),
+        ob.node('Transpose', ['qkv_r'], ['qkv_t'], perm=[2, 0, 3, 1, 4]),
+        ob.node('Split', ['qkv_t'], ['q0', 'k0', 'v0'], axis=0),
+        ob.node('Squeeze', ['q0', 'ax0'], ['q']),
+        ob.node('Squeeze', ['k0', 'ax0'], ['k']),
+        ob.node('Squeeze', ['v0', 'ax0'], ['v']),
+        ob.node('Transpose', ['k'], ['kt'], perm=[0, 1, 3, 2]),
+        ob.node('MatMul', ['q', 'kt'], ['sc0']),
+        ob.node('Mul', ['sc0', 'scale'], ['sc']),
+        ob.node('Softmax', ['sc'], ['att'], axis=-1),
+        ob.node('MatMul', ['att', 'v'], ['o0']),
+        ob.node('Transpose', ['o0'], ['o1'], perm=[0, 2, 1, 3]),
+        ob.node('Reshape', ['o1', 'tok_shape'], ['o2']),
+        ob.node('MatMul', ['o2', 'proj_w'], ['o3']),
+        ob.node('Add', ['t0', 'o3'], ['t1']),
+        ob.node('LayerNormalization', ['t1', 'ln2_s', 'ln2_b'], ['n2'],
+                axis=-1, epsilon=1e-5),
+        ob.node('MatMul', ['n2', 'fc1_w'], ['h0']),
+        ob.node('Div', ['h0', 'sqrt2'], ['h1']),
+        ob.node('Erf', ['h1'], ['h2']),
+        ob.node('Add', ['h2', 'one'], ['h3']),
+        ob.node('Mul', ['h0', 'h3'], ['h4']),
+        ob.node('Mul', ['h4', 'half'], ['h5']),
+        ob.node('MatMul', ['h5', 'fc2_w'], ['h6']),
+        ob.node('Add', ['t1', 'h6'], ['t2']),
+        ob.node('LayerNormalization', ['t2', 'ln3_s', 'ln3_b'], ['n3'],
+                axis=-1, epsilon=1e-5),
+        ob.node('ReduceMean', ['n3'], ['pooled'], axes=[1], keepdims=0),
+        ob.node('Gemm', ['pooled', 'head_w', 'head_b'], ['logits'],
+                transB=1),
+        ob.node('Sigmoid', ['logits'], ['y'])]
+    inits = {
+        'inv255': np.array(1 / 255, np.float32),
+        'patch_w': w(c1, 3, 4, 4, scale=(2 / 48) ** 0.5),
+        'patch_b': np.zeros(c1, np.float32),
+        'merge_w': w(c, c1, 4, 4, scale=(2 / (16 * c1)) ** 0.5),
+        'merge_b': np.zeros(c, np.float32),
+        'i01': np.array([0, 1], np.int64),
+        'neg1': np.array([-1], np.int64),
+        'ax0': np.array([0], np.int64),
+        'qkv_shape': np.array([1, -1, 3, heads, hd], np.int64),
+        'tok_shape': np.array([1, -1, c], np.int64),
+        'scale': np.array(hd ** -0.5, np.float32),
+        'sqrt2': np.array(2 ** 0.5, np.float32),
+        'one': np.array(1, np.float32), 'half': np.array(0.5, np.float32),
+        'qkv_w': w(c, 3 * c, scale=c ** -0.5),
+        'proj_w': w(c, c, scale=c ** -0.5),
+        'fc1_w': w(c, 4 * c, scale=c ** -0.5),
+        'fc2_w': w(4 * c, c, scale=(4 * c) ** -0.5),
+        'head_w': w(TAGGER_TAGS, c, scale=c ** -0.5),
+        # a few tags above the 0.75 threshold, whatever the pooled tokens
+        'head_b': w(TAGGER_TAGS) - 2.0,
+        **{f'ln{i}_{k}': (np.ones if k == 's' else np.zeros)(c, np.float32)
+           for i in (1, 2, 3) for k in 'sb'}}
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, 'wd_swinv2.onnx'), 'wb') as f:
+        f.write(ob.model(nodes, inits, ['x'], ['y']))
+    names = ['general', 'sensitive', 'questionable', 'explicit'] + [
+        f'tag_{i:04d}' for i in range(TAGGER_TAGS - 4)]
+    with open(os.path.join(model_dir, 'selected_tags.csv'), 'w') as f:
+        f.write('tag_id,name,category,count\n')
+        f.writelines(f'{i},{n},0,{100 + i}\n' for i, n in enumerate(names))
+    return sum(int(v.size) for v in inits.values())
+
+
+def sd_models(path):
+    """``check_card_vs_cpu``'s networks: the checkpoint's UNet (a 32x32
+    latent, 77 context tokens), VAE (encode and decode at 256x256) and
+    CLIP text tower (77 tokens), on the CPU in f32."""
+    from manga_image_translator_tpu_torch.models import sd
+    from manga_image_translator_tpu_torch.utils import safetensors_lite
+    cfg = sd.SDConfig()
+    model = sd.build_sd(cfg, 'cpu', safetensors_lite.load(path))
+    g = torch.Generator().manual_seed(0)
+    return {
+        'sd_unet': (model.unet, lambda m, x, t, c: m(x, t, c), (
+            torch.randn(1, 9, 32, 32, generator=g), torch.tensor([501]),
+            torch.randn(1, cfg.max_tokens, cfg.context_dim, generator=g))),
+        'sd_vae_encode': (model.vae, lambda m, x: m.encode_moments(x), (
+            torch.rand(1, 3, 256, 256, generator=g) * 2 - 1,)),
+        'sd_vae_decode': (model.vae, lambda m, z: m.decode(z), (
+            torch.randn(1, 4, 32, 32, generator=g),)),
+        'sd_clip': (model.clip, lambda m, t: m(t), (
+            torch.randint(0, cfg.vocab_size, (1, cfg.max_tokens),
+                          generator=g),)),
+    }
+
+
+def check_ctc():
+    """The multi-label CTC loss and its autograd gradient at a
+    training-like size (batch 16, T 128, the 48px alphabet's 7,935
+    classes, targets up to 32, 4 colour channels) on the card against the
+    CPU, within 1e-3 of max |cpu|; returns errors and the card's ms for
+    loss + backward."""
+    from manga_image_translator_tpu_torch.training import custom_ctc_loss
+    c = CTC_SHAPE
+    g = torch.Generator().manual_seed(0)
+    lp = torch.log_softmax(torch.randn(c['n'], c['t'], c['v'], generator=g),
+                           -1)
+    tl = torch.randint(1, c['s'] + 1, (c['n'],), generator=g)
+    tg = torch.randint(1, c['v'], (c['n'], c['s']), generator=g)
+    il = torch.randint(2 * c['s'] + 8, c['t'] + 1, (c['n'],), generator=g)
+    rv = torch.rand(c['n'], c['t'], c['r'], generator=g)
+    trv = torch.rand(c['n'], c['s'], c['r'], generator=g)
+
+    def run(dev):
+        a = lp.detach().clone().to(dev).requires_grad_(True)
+        b = rv.detach().clone().to(dev).requires_grad_(True)
+        loss = custom_ctc_loss(a, tg.to(dev), b, trv.to(dev), il.to(dev),
+                               tl.to(dev), blank1=c['v'] - 1)
+        loss.backward()
+        return loss.detach(), a.grad, b.grad
+
+    ref = run('cpu')
+    got = run('cuda')
+    torch.cuda.synchronize()
+    errs = {}
+    for name, r, x in zip(('loss', 'grad_log_probs', 'grad_realval'), ref,
+                          got):
+        require(x.is_cuda and bool(torch.isfinite(x).all()),
+                f'ctc {name}: not finite or not on the card')
+        errs[name] = float((x.cpu() - r).abs().max()) / float(
+            r.abs().max())
+        require(errs[name] <= 1e-3, f'ctc {name}: card against CPU '
+                f'{errs[name]} of max')
+    return {'shape': c, 'max_rel_err': errs,
+            'ms_loss_and_backward': cuda_ms(lambda: run('cuda'), iters=3,
+                                            warmup=1, reps=1)}
+
+
+def run_sd_cli(cfg_path, page_dir, name, quads):
+    """One page through the ``local`` CLI's translator with the sd
+    inpainter, then the known-box pass's stage runners on the same page;
+    the launch counters set to 0 just before and read just after. The
+    inpainter's load, tagger, host mask fill and sampler (with its VAE
+    decode) are timed at their edges, device synchronised."""
+    from manga_image_translator_tpu_torch import inpainting
+    from manga_image_translator_tpu_torch import manga_translator as mt
+    from manga_image_translator_tpu_torch.args import parser
+    from manga_image_translator_tpu_torch.config import Inpainter
+    from manga_image_translator_tpu_torch.inpainting import inpainting_sd
+    from manga_image_translator_tpu_torch.mode.local import (
+        MangaTranslatorLocal, load_config_file)
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    dest = os.path.join(OUT, 'sd')
+    args = vars(parser.parse_args(['local', '-i', page_dir, '--dest', dest,
+                                   '--config-file', cfg_path,
+                                   '--overwrite']))
+    stage_ms = {}
+
+    async def hook(state, finished):
+        if state.startswith('stage-time:'):
+            _, stage, ms = state.split(':')
+            stage_ms[stage] = stage_ms.get(stage, 0.0) + float(ms)
+
+    decodes = []
+    parts = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    async def drive():
+        translator = MangaTranslatorLocal(args)
+        require(translator.device == 'cuda',
+                f'translator runs on {translator.device}, not cuda')
+        translator.add_progress_hook(hook)
+        await translator.translate_path(args['input'], dest, args)
+        config = load_config_file(cfg_path)
+        require(config.inpainter.inpainter == Inpainter.sd
+                and config.inpainter.inpainting_size == 1024,
+                f'the sd config runs {config.inpainter}')
+        extra = await _known_quads_pass(
+            translator, config, os.path.join(page_dir, name), quads,
+            decodes)
+        return extra
+
+    inp = inpainting.get_inpainter(Inpainter.sd)
+    inp.forwards = []
+    load = inp._load
+
+    async def timed_load(device):
+        t0 = time.perf_counter()
+        await load(device)
+        torch.cuda.synchronize()
+        parts['load'].append((time.perf_counter() - t0) * 1e3)
+    inp._load = timed_load
+    inp._tags = timed('tagger', inp._tags)
+    fill, sample = (inpainting_sd._fill_mask_input,
+                    inpainting_sd.SAMPLERS['dpmpp_2m'])
+    inpainting_sd._fill_mask_input = timed('mask_fill', fill)
+    inpainting_sd.SAMPLERS['dpmpp_2m'] = timed('sampler_and_decode', sample)
+    torch.cuda.synchronize()
+    try:
+        with _Failures(mt.logger) as failures, recording_decodes(decodes):
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            extra = asyncio.run(drive())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = cuda_build.launch_counts()
+    finally:
+        del inp._load, inp._tags
+        inpainting_sd._fill_mask_input = fill
+        inpainting_sd.SAMPLERS['dpmpp_2m'] = sample
+    require(not failures.records,
+            f'sd: the orchestrator logged {failures.records[:3]}')
+    return inp, {'wall_s': wall, 'stage_ms_cli': stage_ms,
+                 'stage_ms_known_boxes': extra['stage_ms'],
+                 'inpainter_ms': dict(parts), 'launches': counts,
+                 'forwards': [list(f) for f in inp.forwards],
+                 'extra': {k: v for k, v in extra.items()
+                           if k not in ('translate', 'stage_ms')},
+                 'written': os.path.join(dest, name)}
+
+
+def phase_sd(cfg_path):
+    """Stable Diffusion inpainting on the card (``sd``):
+
+    1. a synthetic SD-1.5-inpaint checkpoint at the published widths
+       (``write_sd_checkpoint``, f16, ~1.07 B parameters) and a synthetic
+       tagger with its tag list, under the smoke's model directory;
+    2. the checkpoint's UNet, VAE and CLIP on the card against the CPU
+       (``check_card_vs_cpu``, within 1e-3 of max |cpu| without TF32);
+    3. one 1448x2048 page through the ``local`` CLI's translator with
+       inpainter ``sd`` at inpainting_size 1024 (724x1024, padded to
+       768x1024, a 96x128 latent), dpmpp_2m at 15 steps, a fixed
+       ``MIT_TPU_SD_SEED``, the CLIP vocabulary stubbed by the hash
+       tokenizer (49,408 ids, 77 tokens), then the known-box pass on the
+       same page (``run_sd_cli``): K1, K2 and K3 must launch, K4 and K5
+       not; the inpainted page is finite and changes only inside the mask;
+    4. the UNet forward (CUDA events, warm), the VAE encode and decode and
+       the tagger at the pass's shapes; one guided UNet pair and a VAE
+       decode at the 184x256 latent of the default inpainting_size, with
+       peak device memory; ``F.scaled_dot_product_attention`` at the
+       UNet's top-level attention shape as a library figure;
+    5. the CTC loss and gradient on the card against the CPU
+       (``check_ctc``).
+
+    Prints the ``sd`` line."""
+    import numpy as np
+    from PIL import Image
+    from manga_image_translator_tpu_torch import inpainting
+    from manga_image_translator_tpu_torch.config import Inpainter
+    from manga_image_translator_tpu_torch.inpainting import inpainting_sd
+    from manga_image_translator_tpu_torch.models import sd
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model_dir = os.path.join(os.environ['MIT_TPU_MODEL_DIR'], 'inpainting')
+    ckpt = os.path.join(model_dir, inpainting_sd.CHECKPOINT)
+    n_params, write_s = write_sd_checkpoint(ckpt)
+    tagger_params = write_tagger(model_dir)
+    emit({'phase': 'sd_checkpoint', 'parameters': n_params,
+          'bytes': os.path.getsize(ckpt), 'write_s': write_s,
+          'tagger_parameters': tagger_params})
+    require(1.0e9 < n_params < 1.1e9,
+            f'the SD checkpoint holds {n_params} parameters')
+
+    t0 = time.perf_counter()
+    checks = check_card_vs_cpu(sd_models(ckpt))
+    checks_s = time.perf_counter() - t0
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg.update(copy.deepcopy(SD_CONFIG))
+    path = os.path.join(WORK, 'config_sd.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f)
+    sd_dir = os.path.join(WORK, 'sd_pages')
+    name = 'page0.png'
+    quads = make_pages(sd_dir, n=1)[name]      # the pipeline's first page
+
+    env = {k: os.environ.get(k) for k in ('MIT_TPU_SD_SEED',
+                                          'MIT_TPU_SD_STEPS',
+                                          'MIT_TPU_SD_SAMPLER')}
+    os.environ.update(MIT_TPU_SD_SEED=str(SD_SEED),
+                      MIT_TPU_SD_STEPS=str(SD_STEPS),
+                      MIT_TPU_SD_SAMPLER='dpmpp_2m')
+    real_tokenizer = inpainting_sd.SimpleCLIPTokenizer
+
+    found = []
+
+    def hash_tokenizer(vocab, length, require_real=False):
+        """The hash tokenizer stands in for the CLIP vocabulary (whether
+        the machine's ``transformers`` cache holds one is recorded)."""
+        tok = real_tokenizer(vocab, length)
+        found.append(tok._hf is not None)
+        tok._hf = None
+        return tok
+    inpainting_sd.SimpleCLIPTokenizer = hash_tokenizer
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        inp, cli = run_sd_cli(path, sd_dir, name, quads)
+    finally:
+        inpainting_sd.SimpleCLIPTokenizer = real_tokenizer
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+    pass_peak = torch.cuda.max_memory_allocated()
+    # what the machine's transformers cache answers for the CLIP tokenizer
+    # (the tokenizer takes it only at the text tower's 49,408 ids)
+    try:
+        from transformers import CLIPTokenizer
+        cached = CLIPTokenizer.from_pretrained(
+            'openai/clip-vit-large-patch14', local_files_only=True)
+        cached = {'ids': len(cached), 'prompt_ids': cached(
+            'masterpiece,best quality')['input_ids'][:8]}
+    except Exception as e:           # no transformers, or nothing cached
+        cached = repr(e)[:200]
+    extra = cli['extra']
+    require(inp.cfg == sd.SDConfig() and not inp.using_random_weights,
+            f'the sd pass ran {inp.cfg}, random weights '
+            f'{inp.using_random_weights}')
+    require(inp.tagger is not None and inp.tagger.device.type == 'cuda',
+            f'the sd pass ran its tagger {inp.tagger} off the card '
+            f'({sorted(os.listdir(model_dir))})')
+    require(inp.tokenizer.vocab_size == sd.SDConfig().vocab_size
+            and inp.tokenizer._hf is None, 'the sd pass tokenizer')
+    require(all(p.is_cuda for p in inp.model.parameters()),
+            'the SD networks left the card')
+    require(cli['forwards'] and all(f == [1, 1024, 768]
+                                    for f in cli['forwards']),
+            f'sd forwards {cli["forwards"]}')
+    must, must_not = SD_KERNELS
+    for k in must:
+        require(cli['launches'][k] > 0, f'sd: kernel {k} was not launched')
+    for k in must_not:
+        require(cli['launches'][k] == 0,
+                f'sd: kernel {k} launched {cli["launches"][k]} times')
+    require(extra['inpainted_pixels_inside'] > 0
+            and extra['inpainted_pixels_outside'] == 0,
+            f'sd: inpainting changed {extra["inpainted_pixels_inside"]} '
+            f'pixels inside the mask, {extra["inpainted_pixels_outside"]} '
+            f'outside')
+    require(os.path.isfile(cli['written']), f'sd: {cli["written"]} missing')
+    out = np.asarray(Image.open(cli['written']).convert('RGB'))
+    require(out.shape == (PAGE_H, PAGE_W, 3), f'sd: result {out.shape}')
+
+    # the pass's parts, warm, at its shapes
+    model, cfgm = inp.model, inp.cfg
+    g = torch.Generator(device='cuda').manual_seed(1)
+    lat = SD_PASS_LATENT
+    x_in = torch.randn(1, 9, *lat, device='cuda', generator=g)
+    step = torch.tensor([501], device='cuda')
+    ctx = torch.randn(1, cfgm.max_tokens, cfgm.context_dim, device='cuda',
+                      generator=g)
+    img = torch.rand(1, 3, 8 * lat[0], 8 * lat[1], device='cuda',
+                     generator=g) * 2 - 1
+    z = torch.randn(1, 4, *lat, device='cuda', generator=g)
+    page_bgr = np.ascontiguousarray(out[:, :, ::-1])
+    with torch.inference_mode():
+        unet_out = model.unet(x_in, step, ctx)
+        require(bool(torch.isfinite(unet_out).all()),
+                'the UNet output is not finite')
+        parts_ms = {
+            'unet_forward': cuda_ms(lambda: model.unet(x_in, step, ctx),
+                                    iters=6, warmup=1, reps=2),
+            'vae_encode': cuda_ms(lambda: model.vae.encode_moments(img),
+                                  iters=2, warmup=1, reps=1),
+            'vae_decode': cuda_ms(lambda: model.vae.decode(z), iters=2,
+                                  warmup=1, reps=1),
+            'clip': cuda_ms(lambda: model.clip(torch.zeros(
+                (1, 77), dtype=torch.long, device='cuda')), iters=6,
+                warmup=1, reps=2)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            inp.tagger._run(page_bgr)
+        torch.cuda.synchronize()
+        parts_ms['tagger_host_and_device'] = (time.perf_counter() - t0) \
+            / 3 * 1e3
+    del x_in, ctx, img, z, unet_out
+
+    default = sd_default_size(model, cfgm)
+    library = sd_attention_library()
+    ctc = check_ctc()
+    asyncio.run(inpainting.unload(Inpainter.sd))
+    del inp, model
+    torch.cuda.empty_cache()
+    record = {'phase': 'sd', 'card': torch.cuda.get_device_name(0),
+              'parameters': n_params, 'checkpoint_dtype': 'float16',
+              'models_card_vs_cpu': checks, 'checks_s': checks_s,
+              'cli': {k: v for k, v in cli.items() if k != 'extra'},
+              'known_box_pass': extra, 'pass_max_memory_allocated':
+                  pass_peak,
+              'sampler': 'dpmpp_2m', 'steps': SD_STEPS,
+              'latent': list(lat), 'parts_ms': parts_ms,
+              'clip_tokenizer_taken': any(found),
+              'clip_tokenizer_in_local_cache': cached,
+              'default_size': default, 'attention_library': library,
+              'ctc': ctc, 'seconds': time.perf_counter() - t_phase}
+    emit(record)
+    return record
+
+
+def sd_default_size(model, cfgm):
+    """One guided UNet pair (uncond + cond, the samplers' per-step work)
+    and one VAE decode at the latent of a 1448x2048 page at the default
+    inpainting_size 2048 (184x256: 47,104 tokens in the UNet's top level
+    and the VAE's mid attention, chunked 11 x 4096 + 2,048): device ms
+    (CUDA events, one warm call each) and peak device memory."""
+    from manga_image_translator_tpu_torch.models import sd
+    lat = SD_DEFAULT_LATENT
+    g = torch.Generator(device='cuda').manual_seed(2)
+    x_in = torch.randn(1, 9, *lat, device='cuda', generator=g)
+    step = torch.tensor([501], device='cuda')
+    ctx = torch.randn(2, cfgm.max_tokens, cfgm.context_dim, device='cuda',
+                      generator=g)
+    z = torch.randn(1, 4, *lat, device='cuda', generator=g)
+    out = {'latent': list(lat), 'tokens': lat[0] * lat[1],
+           'chunks': -(-lat[0] * lat[1] // sd.ATTN_QCHUNK)}
+    with torch.inference_mode():
+        for name, fn in (
+                ('unet_pair', lambda: (model.unet(x_in, step, ctx[:1]),
+                                       model.unet(x_in, step, ctx[1:]))),
+                ('vae_decode', lambda: model.vae.decode(z))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res = fn()
+            res = res if isinstance(res, tuple) else (res,)
+            require(all(bool(torch.isfinite(r).all()) for r in res),
+                    f'{name} at the default size is not finite')
+            del res
+            out[f'{name}_ms'] = cuda_ms(fn, iters=1, warmup=0, reps=1)
+            out[f'{name}_max_memory_allocated'] = \
+                torch.cuda.max_memory_allocated()
+            out[f'{name}_memory_above_weights'] = \
+                torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def sd_attention_library():
+    """The UNet's top-level self-attention at the pass's 96x128 latent and
+    at the default size's 184x256 (8 heads of 40): the port's chunked
+    matmul -> softmax -> matmul against one
+    ``F.scaled_dot_product_attention`` call on the same inputs (f32,
+    its memory-efficient backend: the plain one would hold 71 GB of scores
+    at 184x256); device ms and max |difference|."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from manga_image_translator_tpu_torch.models import sd
+    out = {}
+    g = torch.Generator(device='cuda').manual_seed(3)
+    for lat in (SD_PASS_LATENT, SD_DEFAULT_LATENT):
+        n = lat[0] * lat[1]
+        q, k, v = (torch.randn(1, n, 320, device='cuda', generator=g)
+                   for _ in range(3))
+        qh, kh, vh = (t.reshape(1, n, 8, 40).transpose(1, 2)
+                      for t in (q, k, v))
+        with torch.inference_mode(), \
+                sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            ours = sd.attention(q, k, v, 8)
+            lib = F.scaled_dot_product_attention(qh, kh, vh)
+            err = float((lib.transpose(1, 2).reshape(1, n, 320)
+                         - ours).abs().max())
+            out[f'{lat[0]}x{lat[1]}'] = {
+                'tokens': n, 'max_abs_diff': err,
+                'ms': cuda_ms(lambda: sd.attention(q, k, v, 8), iters=2,
+                              warmup=1, reps=1),
+                'library_ms': cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                    iters=2, warmup=1, reps=1)}
+        del q, k, v, qh, kh, vh, ours, lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_breakdown():
     """Where the detect stage's time goes on one pipeline page: the K1
     prefilter, the resize + pad, the DBNet forward (each device-timed) and
@@ -3459,6 +4025,7 @@ def main(argv=None) -> int:
     phase_backends(cfg_path)
     extras = phase_extras(cfg_path)
     check_extras_kernels(results, extras)
+    sd_pass = phase_sd(cfg_path)
     phase_breakdown()
     phase_times(results, forwards, batch['forwards'])
     per_call = phase_trace()
@@ -3474,6 +4041,7 @@ def main(argv=None) -> int:
             'replaces': replaces, 'launches': counts[name],
             'launches_batch': batch['launches'][name],
             'launches_extras': extras['cli']['launches'][name],
+            'launches_sd': sd_pass['cli']['launches'][name],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

@@ -1,7 +1,7 @@
 """Inpainting stage: registry + dispatch (contract: reference
 inpainting/__init__.py:13-45: ``default`` maps to AOT, ``lama_large`` is
-the recommended one). The port serves every inpainter but ``sd``, which
-waits for ROADMAP A.13."""
+the recommended one). The port serves every inpainter, ``sd`` (Stable
+Diffusion, ``inpainting_sd.py``) included."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,19 +12,14 @@ from ..config import Inpainter, InpainterConfig
 from .common import CommonInpainter, OfflineInpainter
 from .inpainting_aot import AotInpainter
 from .inpainting_lama import LamaLargeInpainter, LamaMPEInpainter
+from .inpainting_sd import StableDiffusionInpainter
 from .none_inpainter import NoneInpainter, OriginalInpainter
-
-
-def _sd_factory():
-    raise NotImplementedError(
-        'inpainter "sd" is not ported yet (ROADMAP A.13: Stable Diffusion)')
-
 
 INPAINTERS = {
     Inpainter.default: AotInpainter,
     Inpainter.lama_large: LamaLargeInpainter,
     Inpainter.lama_mpe: LamaMPEInpainter,
-    Inpainter.sd: _sd_factory,
+    Inpainter.sd: StableDiffusionInpainter,
     Inpainter.none: NoneInpainter,
     Inpainter.original: OriginalInpainter,
 }

@@ -5,8 +5,10 @@ ragged and full-width shapes, the wrappers' refusals, K2 and K3's one
 launch per call, the beam search's ancestry table against a physical
 reorder of the cache, and the ct2 transformer of the translators, the
 networks of the other detectors and inpainters (plain PyTorch; LaMa-MPE
-through K4 and K5) and those of the other OCRs, the upscalers and the
-colorizer on the card against the CPU.
+through K4 and K5), those of the other OCRs, the upscalers and the
+colorizer, the tiny Stable Diffusion networks, the SD inpainter, the ONNX
+evaluator and the multi-label CTC loss with its gradient on the card
+against the CPU.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -721,3 +723,175 @@ def test_slice_network_on_card_matches_cpu(dev, name):
         assert g.is_cuda and g.shape == r.shape
         err = float((g.cpu().float() - r.float()).abs().max())
         assert err <= 1e-3 * float(r.abs().max()), (name, err)
+
+
+def _card_vs_cpu(model, fwd, inputs, dev):
+    """max |card - cpu| / max |cpu| over the outputs, f32 without TF32."""
+    import copy
+    card = copy.deepcopy(model).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = fwd(model, *inputs)
+            got = fwd(card, *[x.to(dev) for x in inputs])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.is_cuda and got.shape == ref.shape
+    return float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
+
+
+@pytest.mark.parametrize('net', ['unet', 'vae_encode', 'vae_decode', 'clip'])
+def test_sd_tiny_on_card_matches_cpu(dev, net):
+    """The tiny SD networks (plain PyTorch; chunked attention with a short
+    last chunk) on the card against the CPU within 1e-3 of max |cpu|."""
+    from manga_image_translator_tpu_torch.models import sd
+    cfg = sd.SDConfig.tiny()
+    model = sd.build_sd(cfg, 'cpu', sd.init_state_dict(cfg))
+    g = torch.Generator().manual_seed(0)
+    if net == 'unet':
+        old, sd.ATTN_QCHUNK = sd.ATTN_QCHUNK, 40     # 96 tokens: 40, 40, 16
+        try:
+            rel = _card_vs_cpu(model, lambda m, x, t, c: m.unet(x, t, c), (
+                torch.randn(1, 9, 8, 12, generator=g),
+                torch.tensor([501]),
+                torch.randn(1, cfg.max_tokens, cfg.context_dim,
+                            generator=g)), dev)
+        finally:
+            sd.ATTN_QCHUNK = old
+    elif net == 'vae_encode':
+        rel = _card_vs_cpu(model, lambda m, x: m.vae.encode_moments(x),
+                           (torch.rand(1, 3, 32, 48, generator=g) * 2 - 1,),
+                           dev)
+    elif net == 'vae_decode':
+        rel = _card_vs_cpu(model, lambda m, z: m.vae.decode(z),
+                           (torch.randn(1, 4, 8, 12, generator=g),), dev)
+    else:
+        rel = _card_vs_cpu(model, lambda m, t: m.clip(t), (
+            torch.randint(0, cfg.vocab_size, (2, cfg.max_tokens),
+                          generator=g),), dev)
+    assert rel <= 1e-3, (net, rel)
+
+
+def test_sd_inpainter_on_card_keeps_outside_pixels(dev, monkeypatch,
+                                                   tmp_path):
+    """The random-weight SD inpainter loaded on the card: every parameter
+    and the sampler's noise on the card, pixels outside the mask kept."""
+    from manga_image_translator_tpu_torch.config import InpainterConfig
+    from manga_image_translator_tpu_torch.inpainting import inpainting_sd
+    from manga_image_translator_tpu_torch.utils import inference
+    monkeypatch.setattr(inference, 'MODULE_DIR', tmp_path)
+    monkeypatch.setenv('MIT_TPU_ALLOW_RANDOM_WEIGHTS', '1')
+    monkeypatch.setenv('MIT_TPU_SD_STEPS', '3')
+    monkeypatch.setenv('MIT_TPU_SD_SEED', '5')
+    inp = inpainting_sd.StableDiffusionInpainter()
+    import asyncio
+    asyncio.run(inp.load('cuda'))
+    assert all(p.is_cuda for p in inp.model.parameters())
+    draws = []
+    make = inp.make_draw
+
+    def recording(seed, device):
+        draw = make(seed, device)
+
+        def wrapped(shape):
+            out = draw(shape)
+            draws.append(out.device.type)
+            return out
+        return wrapped
+    inp.make_draw = recording
+    rs = np.random.RandomState(0)
+    page = rs.randint(0, 255, (72, 96, 3)).astype(np.uint8)
+    mask = np.zeros((72, 96), np.uint8)
+    mask[20:50, 30:80] = 255
+    out = asyncio.run(inp.inpaint(page, mask, InpainterConfig(), 64))
+    assert draws and set(draws) == {'cuda'}
+    np.testing.assert_array_equal(out[mask < 127], page[mask < 127])
+
+
+def test_onnx_evaluator_on_card_matches_cpu(dev):
+    """A tagger-like graph (patch conv, LayerNormalization, MatMul
+    attention with Softmax, Erf GELU, ReduceMean, Gemm, Sigmoid, the shape
+    flow folded on the host) on the card against the CPU."""
+    import onnx_build as ob
+    from manga_image_translator_tpu_torch.utils import onnx_eval, onnx_lite
+    rs = np.random.RandomState(0)
+    c = 16
+    nodes = [
+        ob.node('Transpose', ['x'], ['xc'], perm=[0, 3, 1, 2]),
+        ob.node('Conv', ['xc', 'pw'], ['p'], strides=[4, 4]),
+        ob.node('Shape', ['p'], ['ps']),
+        ob.node('Gather', ['ps', 'i1'], ['ch']),
+        ob.node('Unsqueeze', ['ch', 'ax0'], ['chu']),
+        ob.node('Concat', ['one', 'chu', 'neg'], ['tshape'], axis=0),
+        ob.node('Reshape', ['p', 'tshape'], ['t0']),
+        ob.node('Transpose', ['t0'], ['t'], perm=[0, 2, 1]),
+        ob.node('LayerNormalization', ['t', 's', 'b'], ['n'], axis=-1),
+        ob.node('MatMul', ['n', 'wq'], ['q']),
+        ob.node('MatMul', ['n', 'wk'], ['k']),
+        ob.node('Transpose', ['k'], ['kt'], perm=[0, 2, 1]),
+        ob.node('MatMul', ['q', 'kt'], ['sc']),
+        ob.node('Softmax', ['sc'], ['a'], axis=-1),
+        ob.node('MatMul', ['a', 'n'], ['o']),
+        ob.node('Div', ['o', 'sqrt2'], ['od']),
+        ob.node('Erf', ['od'], ['e']),
+        ob.node('Add', ['e', 'onef'], ['e1']),
+        ob.node('Mul', ['o', 'e1'], ['g0']),
+        ob.node('Mul', ['g0', 'half'], ['g']),
+        ob.node('ReduceMean', ['g'], ['m'], axes=[1], keepdims=0),
+        ob.node('Gemm', ['m', 'hw', 'hb'], ['h'], transB=1),
+        ob.node('Sigmoid', ['h'], ['y']),
+    ]
+    inits = {'pw': rs.randn(c, 3, 4, 4).astype(np.float32) * 0.01,
+             'i1': np.array(1, np.int64), 'ax0': np.array([0], np.int64),
+             'one': np.array([1], np.int64), 'neg': np.array([-1], np.int64),
+             's': np.ones(c, np.float32), 'b': np.zeros(c, np.float32),
+             'wq': rs.randn(c, c).astype(np.float32) / 4,
+             'wk': rs.randn(c, c).astype(np.float32) / 4,
+             'sqrt2': np.array(np.sqrt(2), np.float32),
+             'onef': np.array(1, np.float32),
+             'half': np.array(0.5, np.float32),
+             'hw': rs.randn(30, c).astype(np.float32),
+             'hb': rs.randn(30).astype(np.float32)}
+    g = onnx_lite.parse_model(ob.model(nodes, inits, ['x'], ['y']))
+    run = onnx_eval.make_runner(g)
+    x = torch.from_numpy(rs.randint(0, 255, (1, 64, 64, 3))
+                         .astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = run(x)
+        got = run(x.to(dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.is_cuda and got.shape == ref.shape == (1, 30)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * float(
+        ref.abs().max())
+
+
+def test_ctc_loss_and_gradient_on_card_match_cpu(dev):
+    """The multi-label CTC loss and its autograd gradient (log_probs and
+    colours) on the card against the CPU within 1e-3 of max |cpu|."""
+    from manga_image_translator_tpu_torch.training import custom_ctc_loss
+    g = torch.Generator().manual_seed(0)
+    n, t, v, s, r = 4, 40, 97, 8, 4
+    lp = torch.log_softmax(torch.randn(n, t, v, generator=g), -1)
+    tg = torch.randint(1, v, (n, s), generator=g)
+    rv = torch.rand(n, t, r, generator=g)
+    trv = torch.rand(n, s, r, generator=g)
+    il = torch.tensor([t, t - 5, t - 9, 20])
+    tl = torch.tensor([s, s - 1, 3, 0])
+
+    def run(device):
+        a = lp.detach().clone().to(device).requires_grad_(True)
+        b = rv.detach().clone().to(device).requires_grad_(True)
+        loss = custom_ctc_loss(a, tg.to(device), b, trv.to(device),
+                               il.to(device), tl.to(device), blank1=v - 1)
+        loss.backward()
+        return loss.detach().cpu(), a.grad.cpu(), b.grad.cpu()
+
+    for ref, got in zip(run('cpu'), run(dev)):
+        assert float((got - ref).abs().max()) <= 1e-3 * float(
+            ref.abs().max())

@@ -157,14 +157,18 @@ def test_default_bf16_precision_runs(results):
 
 
 def test_lama_mpe_waits_for_its_item():
-    """Of the inpainters only ``sd`` waits (ROADMAP A.13); ``default`` (AOT)
-    and ``lama_mpe`` resolve to the port's classes."""
+    """No inpainter waits any more: ``sd`` builds the port's
+    ``StableDiffusionInpainter``; ``default`` (AOT) and ``lama_mpe``
+    resolve to the port's classes."""
     from manga_image_translator_tpu_torch import inpainting
     from manga_image_translator_tpu_torch.config import Inpainter
     from manga_image_translator_tpu_torch.inpainting.inpainting_aot import \
         AotInpainter
-    with pytest.raises(NotImplementedError, match='ROADMAP A.13'):
-        inpainting.get_inpainter(Inpainter.sd)
+    from manga_image_translator_tpu_torch.inpainting.inpainting_sd import \
+        StableDiffusionInpainter
+    assert set(inpainting.INPAINTERS) == set(Inpainter)
+    assert (type(inpainting.INPAINTERS[Inpainter.sd]())
+            is StableDiffusionInpainter)
     assert type(inpainting.INPAINTERS[Inpainter.default]()) is AotInpainter
     assert (type(inpainting.INPAINTERS[Inpainter.lama_mpe]())
             is inpainting_lama.LamaMPEInpainter)

@@ -382,15 +382,19 @@ def test_aot_generator_matches_jax():
 
 
 def test_every_inpainter_but_sd_is_ported():
+    """Every inpainter is served now, ``sd`` (ROADMAP A.13) included."""
+    from manga_image_translator_tpu_torch.inpainting.inpainting_sd import \
+        StableDiffusionInpainter
     from manga_image_translator_tpu_torch.inpainting.none_inpainter import (
         NoneInpainter, OriginalInpainter)
     want = {Inpainter.default: inpainting_aot.AotInpainter,
             Inpainter.lama_large: inpainting_lama.LamaLargeInpainter,
             Inpainter.lama_mpe: inpainting_lama.LamaMPEInpainter,
+            Inpainter.sd: StableDiffusionInpainter,
             Inpainter.none: NoneInpainter,
             Inpainter.original: OriginalInpainter}
-    assert set(want) | {Inpainter.sd} == set(Inpainter)
+    assert set(want) == set(Inpainter)
     for key, cls in want.items():
         assert type(inpainting.INPAINTERS[key]()) is cls
-    with pytest.raises(NotImplementedError, match='A.13'):
-        inpainting.INPAINTERS[Inpainter.sd]()
+    assert type(inpainting.get_inpainter(Inpainter.sd)) \
+        is StableDiffusionInpainter

@@ -175,6 +175,32 @@ def test_new_model_round_trip(name):
         assert torch.equal(own[k], v), k
 
 
+def test_sd_round_trip():
+    """The SD key space: JAX init_params(tiny) -> torch state dict (convs
+    HWIO -> OIHW, the VAE's 1x1 q/k/v/proj_out included; dense (in, out)
+    -> (out, in); the text embeddings as they are) -> JAX params is
+    exact, and the port's ``SDModel`` takes every key strictly."""
+    from manga_image_translator_tpu.models import sd as jax_sd
+    from manga_image_translator_tpu_torch.models import sd
+    params = _np(jax_sd.init_params(jax_sd.SDConfig.tiny()))
+    state = torch_state_dict_from_jax(
+        params, embedding_patterns=sd.EMBEDDING_PATTERNS)
+    _assert_round_trip(params, state,
+                       embedding_patterns=jax_sd.EMBEDDING_PATTERNS)
+    key = 'first_stage_model.encoder.mid.attn_1.q.weight'
+    assert state[key].shape == (64, 64, 1, 1)
+    assert np.array_equal(state[key][:, :, 0, 0].numpy(),
+                          params[key][0, 0].T)
+    tok = 'cond_stage_model.transformer.text_model.embeddings.' \
+        'token_embedding.weight'
+    assert state[tok].shape == (97, 64)
+    model = sd.build_sd(sd.SDConfig.tiny(), 'cpu', state)
+    own = sd.init_state_dict(sd.SDConfig.tiny())
+    assert set(own) == set(state) == set(model.state_dict())
+    for k, v in own.items():
+        assert v.shape == state[k].shape, k
+
+
 def test_mpe_tables_round_trip():
     """The MPE tables are embeddings (not transposed), the scales 0-d."""
     from manga_image_translator_tpu.models import lama as jax_lama
@@ -269,6 +295,14 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.colorization'
         '.manga_colorization_v2\n'
         'import manga_image_translator_tpu_torch.models.mc2\n'
+        '# Stable Diffusion, its tagger and ONNX evaluator, the CTC loss\n'
+        'import manga_image_translator_tpu_torch.inpainting.inpainting_sd\n'
+        'import manga_image_translator_tpu_torch.inpainting.booru_tagger\n'
+        'import manga_image_translator_tpu_torch.models.sd\n'
+        'import manga_image_translator_tpu_torch.utils.onnx_eval\n'
+        'import manga_image_translator_tpu_torch.utils.safetensors_lite\n'
+        'import manga_image_translator_tpu_torch.training\n'
+        'import manga_image_translator_tpu_torch.training.ctc\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
