@@ -72,7 +72,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the CLIP vocabulary; K1-K3 must launch, K4 and K5 not; pixels outside
    the mask kept), a guided UNet pair and a VAE decode at the 184x256
    latent of the default inpainting_size, and the multi-label CTC loss
-   and gradient on the card against the CPU;
+   and gradient on the card against the CPU; the OCR's device crops
+   (``crops``: the 48px OCR of the default ``Config`` cuts its crops on
+   the card, and the pipeline's known axis-aligned boxes must all take
+   the separable route; the separable resampler, a mixed chunk and the
+   gather path on the card against the CPU within 2e-5 at the first
+   page's lines, and the ms to build the page's crops by each route
+   against host cv2); the mesh (``mesh``: the card twice as an explicit
+   two-shard mesh, batched detection, the 48px memory and decode and the
+   LaMa and AOT batches split against unsplit, ``pipeline_step`` with
+   K1-K3 launched, one ``train_step_dbnet`` on the card against the
+   CPU); the desktop studio (``studio_gui``: its headless view-model runs
+   one page through the real pipeline on the card);
 5. times each kernel (CUDA events around 5 back-to-back calls, median of
    5 such samples after warm-up) beside its
    plain version and a PyTorch library composite of the same function, and
@@ -825,6 +836,48 @@ def recording_decodes(log):
         ct2_model.Ct2Transformer.translate_batch = inner
 
 
+@contextlib.contextmanager
+def recording_crops(log):
+    """Every OCR crop chunk built inside the block is appended to ``log``
+    as (route, rows, on the card): ``separable``, ``patched`` (a separable
+    chunk with host-warped rows written over it; its separable call is
+    logged too) and ``gather`` from ``ops.warp``, ``host`` for cv2 crops
+    (``ocr.common.HostCrops``)."""
+    from manga_image_translator_tpu_torch.ocr import common
+    from manga_image_translator_tpu_torch.ops import warp
+    saved = [(warp, 'crop_batch_separable'),
+             (warp, 'crop_batch_separable_patched'), (warp, 'crop_batch'),
+             (common.HostCrops, 'chunk')]
+    inner = {key: getattr(*key) for key in saved}
+
+    def wrap(key, route):
+        fn = inner[key]
+
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            images = out[0] if isinstance(out, tuple) else out
+            log.append((route, int(images.shape[0]), bool(images.is_cuda)))
+            return out
+        setattr(*key, recorded)
+
+    for key, route in zip(saved, ('separable', 'patched', 'gather',
+                                  'host')):
+        wrap(key, route)
+    try:
+        yield
+    finally:
+        for key, fn in inner.items():
+            setattr(*key, fn)
+
+
+def crop_routes(log):
+    """Chunks by route from a ``recording_crops`` log."""
+    n = collections.Counter(route for route, _, _ in log)
+    return {'separable': n['separable'] - n['patched'],
+            'patched': n['patched'], 'gather': n['gather'],
+            'host': n['host']}
+
+
 def decode_busy_us(call, chunk=2):
     """Device time per beam step of a recorded decode, by CUDA events: the
     same search replayed ``chunk`` steps at a time, each chunk enqueued
@@ -1013,7 +1066,8 @@ def render_boxes(ctx, config):
     return boxes
 
 
-async def _known_quads_pass(translator, config, page_path, quads, decodes):
+async def _known_quads_pass(translator, config, page_path, quads, decodes,
+                            crops=None):
     """OCR + merge + translate + mask refinement + inpainting + rendering
     through the orchestrator's stage runners on the page's known text boxes
     (the random-weight detector may find none); returns per-stage ms
@@ -1042,8 +1096,10 @@ async def _known_quads_pass(translator, config, page_path, quads, decodes):
         ms[name] = (time.perf_counter() - t0) * 1e3
         return out
 
+    first_crop = len(crops) if crops is not None else 0
     ctx.textlines = await timed('ocr', lambda: translator._run_ocr(config,
                                                                    ctx))
+    ocr_crops = crops[first_crop:] if crops is not None else []
     ctx.text_regions = await timed(
         'textline_merge', lambda: translator._run_textline_merge(config, ctx))
     first_decode = len(decodes)
@@ -1088,7 +1144,7 @@ async def _known_quads_pass(translator, config, page_path, quads, decodes):
             'rendered_pixels_in_boxes': int((rendered & boxes).sum()),
             'rendered_pixels_outside': int((rendered & ~boxes).sum()),
             'forwards': [list(f) for f in forwards], 'stage_ms': ms,
-            'translate': translated}
+            'translate': translated, 'ocr_crops': ocr_crops}
 
 
 def phase_pipeline():
@@ -1145,14 +1201,15 @@ def phase_pipeline():
         for name, quads in boxes.items():
             extra[name] = await _known_quads_pass(
                 translator, config, os.path.join(page_dir, name), quads,
-                decodes)
+                decodes, crop_log)
         return extra
 
     torch.cuda.synchronize()
     inp.forwards = []
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
-    with recording_decodes(decodes):
+    crop_log = []
+    with recording_decodes(decodes), recording_crops(crop_log):
         extra = asyncio.run(drive())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1176,7 +1233,8 @@ def phase_pipeline():
     buckets = collections.Counter(tuple(f) for f in forwards)
     emit({'phase': 'pipeline', 'wall_s': wall, 'stage_ms': stage_ms,
           'known_box_pass': {
-              name: {k: v for k, v in r.items() if k != 'translate'}
+              name: {k: v for k, v in r.items()
+                     if k not in ('translate', 'ocr_crops')}
               for name, r in extra.items()},
           'decodes': [{k: c[k] for k in ('wall_ms', 'steps')}
                       for c in decodes],
@@ -1184,6 +1242,12 @@ def phase_pipeline():
           'pages': pages, 'launches': counts,
           'lama_forwards': {f'{n}x{h}x{w}': k
                             for (n, h, w), k in sorted(buckets.items())},
+          # the default Config crops on the card (MIT_TPU_DEVICE_CROPS
+          # auto): chunks by route over the whole run, and per page in the
+          # known-box OCR
+          'ocr_crop_chunks': crop_routes(crop_log),
+          'known_box_crop_chunks': {name: crop_routes(r['ocr_crops'])
+                                    for name, r in extra.items()},
           'inpaint_ms_per_page': [r['stage_ms']['inpaint']
                                   for r in extra.values()],
           'render_ms_per_page': [r['stage_ms']['render']
@@ -1194,7 +1258,15 @@ def phase_pipeline():
     require(counts['fourier_unit'] == 2 * LAMA_BLOCKS * len(forwards)
             and counts['conv_stream'] == 2 * len(forwards),
             f'{len(forwards)} generator forwards, launches {counts}')
+    require(all(on_card for route, _, on_card in crop_log
+                if route != 'host'),
+            'a device crop chunk was built off the card')
     for name, r in extra.items():
+        # the known boxes are axis-aligned: every chunk separable
+        routes = crop_routes(r['ocr_crops'])
+        require(routes['separable'] > 0 and sum(routes.values())
+                == routes['separable'],
+                f'{name}: known-box OCR crops went {routes}')
         require(r['ocr_lines'] == LINES_PER_PAGE and r['mask_pixels'] > 0,
                 f'{name}: {r["ocr_lines"]} OCR lines, '
                 f'{r["mask_pixels"]} mask pixels')
@@ -1210,7 +1282,7 @@ def phase_pipeline():
                 f'{name}: rendering changed {r["rendered_pixels_in_boxes"]} '
                 f'pixels in the text boxes, {r["rendered_pixels_outside"]} '
                 f'outside')
-    return counts, forwards, page_dir, cfg_path, extra
+    return counts, forwards, page_dir, cfg_path, extra, boxes
 
 
 def phase_cli(page_dir, cfg_path):
@@ -1432,18 +1504,24 @@ def phase_batch(cfg_path):
         # beams turn the least difference into other characters; in f32
         # without TF32 the memory of a crop does not depend on the crops
         # beside it: there the pooled texts must equal the per-page ones.
-        switch = os.environ.get('MIT_TPU_OCR_BF16_BACKBONE')
+        # The pooled OCR cuts host cv2 crops (as in the JAX package), so the
+        # per-page read takes them too (MIT_TPU_DEVICE_CROPS=0): the check
+        # is of the pooling, not of the crops' route.
+        switches = {k: os.environ.get(k) for k in
+                    ('MIT_TPU_OCR_BF16_BACKBONE', 'MIT_TPU_DEVICE_CROPS')}
         tf32 = torch.backends.cudnn.allow_tf32
-        os.environ['MIT_TPU_OCR_BF16_BACKBONE'] = '0'
+        os.environ.update(MIT_TPU_OCR_BF16_BACKBONE='0',
+                          MIT_TPU_DEVICE_CROPS='0')
         torch.backends.cudnn.allow_tf32 = False
         try:
             exact = lines_differ(read(True), read(False))
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
-            if switch is None:
-                os.environ.pop('MIT_TPU_OCR_BF16_BACKBONE')
-            else:
-                os.environ['MIT_TPU_OCR_BF16_BACKBONE'] = switch
+            for k, v in switches.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
     finally:
         del rec._infer, rec._two_tier_decode, inp.infer_batch
 
@@ -3282,6 +3360,449 @@ def sd_attention_library():
     return out
 
 
+# ---------------------------------------------------------------------------
+# device OCR crops, the mesh, the desktop studio
+# ---------------------------------------------------------------------------
+
+CROP_TOL = (2e-5, 1e-5)         # atol, rtol: tests/test_warp_crops.py:166
+
+
+def _turned(quad, angle):
+    """The quad's corners turned by ``angle`` about their centre."""
+    import numpy as np
+    pts = np.asarray(quad, np.float64)
+    c = pts.mean(0)
+    cs, sn = math.cos(angle), math.sin(angle)
+    return (pts - c) @ np.array([[cs, -sn], [sn, cs]]).T + c
+
+
+def phase_crops(page_dir, boxes):
+    """The OCR's device crops (``ops.warp``) on the card against the same
+    functions on the CPU at the first smoke page's 18 lines, in the
+    24-row chunk the 48px OCR builds for them: the separable resampler,
+    a mixed chunk (two lines turned by 0.2 rad, cv2-warped on the host
+    and patched in) and the gather path; then the ms to build the page's
+    crops by each route from its grouped lines (CUDA events around host
+    and device work, warm, median of 5), and the host ms of the grouping
+    itself (``_generate_text_direction``), which every route shares."""
+    import cv2
+    import numpy as np
+    from manga_image_translator_tpu_torch import ocr as ocr_mod
+    from manga_image_translator_tpu_torch.config import Ocr
+    from manga_image_translator_tpu_torch.ocr import model_48px
+    from manga_image_translator_tpu_torch.ocr.common import (DeviceCrops,
+                                                             HostCrops,
+                                                             chunks)
+    from manga_image_translator_tpu_torch.ops import warp
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    name = sorted(boxes)[0]
+    img = cv2.cvtColor(cv2.imread(os.path.join(page_dir, name)),
+                       cv2.COLOR_BGR2RGB)
+    quads = boxes[name]
+    turned = {1: _turned(quads[1], 0.2), 6: _turned(quads[6], -0.2)}
+
+    def lines(with_turned=False):
+        return [Quadrilateral(np.asarray(
+            turned[i] if with_turned and i in turned else q, np.float64),
+            '', 1.0) for i, q in enumerate(quads)]
+
+    height, rows = model_48px.TEXT_HEIGHT, model_48px.BIG_CHUNK
+    plans = [warp.crop_plan_quad(q, 'h', height) for q in lines()]
+    mixed_plans = [warp.crop_plan_quad(q, 'h', height)
+                   for q in lines(True)]
+    host = {i: q.get_transformed_region(img, 'h', height)
+            for i, q in enumerate(lines(True)) if i in turned}
+    bw = model_48px.bucket_width(max(p[0] for p in plans + mixed_plans))
+
+    def valid(ps):
+        v = np.zeros((rows,), np.int32)
+        v[:len(ps)] = [min(p[0], bw) for p in ps]
+        return v
+    Hs = np.stack([p[1] for p in plans]
+                  + [warp._DEGENERATE_H] * (rows - len(plans)))
+    cases = {
+        'separable': lambda page: warp.crop_batch_auto(
+            page, Hs, valid(plans), height, bw),
+        'mixed': lambda page: warp.crop_chunk_mixed(
+            page, mixed_plans, list(range(len(quads))), host,
+            valid(mixed_plans), height, bw, rows),
+        'gather': lambda page: warp.crop_batch(page, Hs, valid(plans),
+                                               height, bw)}
+    page_cpu = torch.from_numpy(img)
+    page_dev = page_cpu.cuda()
+    checks = {}
+    for case, fn in cases.items():
+        log = []
+        with recording_crops(log):
+            got = fn(page_dev)
+        want = fn(page_cpu)
+        require(got.is_cuda and got.shape == want.shape == (
+            rows, height, bw, 3), f'crops {case}: {tuple(got.shape)}')
+        diff = (got.cpu() - want).abs()
+        bound = CROP_TOL[0] + CROP_TOL[1] * want.abs()
+        checks[case] = {'max_abs_err': float(diff.max()),
+                        'within': bool((diff <= bound).all()),
+                        'routes': crop_routes(log)}
+    # the route each case must take
+    require(checks['separable']['routes']['separable'] == 1
+            and checks['mixed']['routes']['patched'] == 1
+            and checks['gather']['routes']['gather'] == 1,
+            f'crop routes {checks}')
+
+    ocr = ocr_mod.get_ocr(Ocr.ocr48px)
+    if not ocr.is_loaded:
+        asyncio.run(ocr.load('cuda'))
+    require(ocr.device.type == 'cuda', f'the 48px OCR is on {ocr.device}')
+
+    # the lines grouped and ordered as the OCR does it (host; the same
+    # for every route, so timed apart)
+    t0 = time.perf_counter()
+    grouped = {False: list(ocr._generate_text_direction(lines()))}
+    grouping_ms = (time.perf_counter() - t0) * 1e3
+    grouped[True] = list(ocr._generate_text_direction(lines(True)))
+
+    def build(mode, with_turned=False):
+        """A page's crops by one route, chunked as the 48px OCR chunks
+        them: cv2 warps padded and uploaded, or the page uploaded and
+        resampled on the card."""
+        qd = grouped[with_turned]
+        if mode == 'host':
+            crops = HostCrops([q.get_transformed_region(img, d, height)
+                               for q, d in qd], ocr.device)
+        else:
+            crops = DeviceCrops.plan(img, qd, height, mode, ocr.device)
+        perm = sorted(range(len(qd)), key=crops.width)
+        size = (model_48px.BIG_CHUNK if len(perm) > model_48px.MAX_CHUNK
+                else model_48px.MAX_CHUNK)
+        for idx in chunks(perm, size):
+            crops.chunk(idx, size, model_48px.bucket_width(
+                max(crops.width(i) for i in idx)))
+
+    def page_ms(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    page_ms_by_route = {
+        'host_cv2': page_ms(lambda: build('host')),
+        'device_separable': page_ms(lambda: build('auto')),
+        'device_patched': page_ms(lambda: build('auto', True)),
+        'device_gather': page_ms(lambda: build('gather'))}
+    emit({'phase': 'crops', 'page': name, 'lines': len(quads),
+          'chunk': [rows, height, bw, 3], 'tolerance': list(CROP_TOL),
+          'checks': checks, 'page_crops_ms': page_ms_by_route,
+          'grouping_host_ms': grouping_ms})
+    for case, c in checks.items():
+        require(c['within'], f'crops {case}: card against CPU '
+                             f'{c["max_abs_err"]}')
+    return page_ms_by_route
+
+
+MESH_TOL = {'maps': 1e-4, 'memory': 1e-4, 'colours': 1e-5,
+            'inpaint_grey': 1, 'train_loss': 1e-2, 'train_step': 5e-2}
+
+
+def phase_mesh(page_dir, boxes):
+    """``parallel.mesh`` on the card: ``get_mesh`` is None (one card), so
+    an explicit mesh of the card twice (``make_mesh(devices=[cuda:0] *
+    2, tp=1)``: two data-parallel shards run in turn) is installed, and
+    batched detection, the 48px memory and the LaMa and AOT batches run
+    split against unsplit, the beam decode split against the plain
+    decode of each half; ``pipeline_step`` on the card
+    (K1, K2 and K3 must launch); one ``train_step_dbnet`` on the card
+    against the CPU. The split checks run in f32 without TF32 (the two
+    shard sizes may take other cuDNN algorithms); the training step keeps
+    the card's TF32 convolutions (device.py), and its tolerance allows
+    for them. One physical card: the ms are no speed claim."""
+    import cv2
+    import numpy as np
+    from manga_image_translator_tpu_torch import detection, inpainting
+    from manga_image_translator_tpu_torch import ocr as ocr_mod
+    from manga_image_translator_tpu_torch.config import (
+        Detector, InpainterConfig, InpaintPrecision, Inpainter, Ocr)
+    from manga_image_translator_tpu_torch.detection import default
+    from manga_image_translator_tpu_torch.inpainting import inpainting_aot
+    from manga_image_translator_tpu_torch.models import ocr48
+    from manga_image_translator_tpu_torch.ocr import model_48px
+    from manga_image_translator_tpu_torch.ocr.common import DeviceCrops
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    from manga_image_translator_tpu_torch.parallel import mesh
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    dev = torch.device('cuda', 0)
+    require(torch.cuda.device_count() != 1 or mesh.get_mesh() is None,
+            'one card, yet get_mesh() found a mesh')
+    two = mesh.make_mesh(devices=[dev, dev], tp=1)
+    names = sorted(boxes)
+    pages = [cv2.cvtColor(cv2.imread(os.path.join(page_dir, n)),
+                          cv2.COLOR_BGR2RGB) for n in names]
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def split_and_plain(key, fn):
+        fn()                          # warm both shapes' paths
+        mesh.set_mesh(two)
+        try:
+            fn()
+            got, split_ms = timed(fn)
+        finally:
+            mesh.set_mesh(None)
+        want, plain_ms = timed(fn)
+        out[key] = {'split_ms': split_ms, 'plain_ms': plain_ms}
+        return got, want
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # batched detection: K1 + DBNet on the three letterboxed canvases
+        det = detection.get_detector(Detector.default)
+        ocr = ocr_mod.get_ocr(Ocr.ocr48px)
+        lam = inpainting.get_inpainter(Inpainter.lama_large)
+        aot_inp = inpainting.get_inpainter(Inpainter.default)
+        for m in (det, ocr, lam, aot_inp):
+            if not m.is_loaded:
+                asyncio.run(m.load('cuda'))
+        canv = np.zeros((3, 2048, 2048, 3), np.uint8)
+        for i in range(3):
+            pg = pages[i % len(pages)]
+            r = 2048 / max(pg.shape[:2])
+            th, tw = round(pg.shape[0] * r), round(pg.shape[1] * r)
+            canv[i, :th, :tw] = cv2.resize(pg, (tw, th))
+        canv = torch.from_numpy(canv).to(dev)
+        got, want = split_and_plain(
+            'detect_maps', lambda: default._detect_maps(det.model, canv))
+        out['detect_maps']['max_abs_diff'] = max(
+            float((g - w).abs().max()) for g, w in zip(got, want))
+
+        # the 48px OCR: one chunk of the first page's device crops, memory
+        # in f32 split, then the decode (K2 + K3) split from one memory
+        lines = [(Quadrilateral(np.asarray(q, np.float64), '', 1.0), 'h')
+                 for q in boxes[names[0]]]
+        crops = DeviceCrops.plan(pages[0], lines, 48, 'auto', dev)
+        rows = model_48px.BIG_CHUNK
+        bw = model_48px.bucket_width(max(crops.width(i)
+                                         for i in range(len(lines))))
+        images, vw, _ = crops.chunk(list(range(len(lines))), rows, bw)
+        vw = torch.from_numpy(vw).to(dev)
+        got, want = split_and_plain('ocr48_memory', lambda: (
+            ocr48.sharded_compute_memory(ocr.model, images, vw, False)))
+        mem_scale = float(want[0].abs().max())
+        out['ocr48_memory']['max_abs_diff_over_max'] = float(
+            (got[0] - want[0]).abs().max()) / mem_scale
+        out['ocr48_memory']['masks_equal'] = bool(torch.equal(got[1],
+                                                              want[1]))
+        memory = want
+
+        def decode(mem, mask):
+            return ocr48.sharded_beam_decode_from_memory(
+                ocr.model, mem, mask, beams_k=model_48px.BEAMS, max_len=64)
+        got, whole = split_and_plain('ocr48_decode', lambda: decode(
+            *memory))
+        # each shard decodes as the plain call decodes its half: cuBLAS
+        # picks its GEMMs by row count, so a whole-batch decode may round
+        # other rows' bf16 K/V apart, and random weights' beams split at
+        # near-ties (the whole-batch agreement is reported, not held)
+        h = rows // 2
+        halves = [decode(memory[0][sl], memory[1][sl])
+                  for sl in (slice(0, h), slice(h, rows))]
+        want = {k: torch.cat([hv[k] for hv in halves]) for k in got}
+        out['ocr48_decode'].update(
+            sequences_equal=bool(torch.equal(got['sequences'],
+                                             want['sequences'])),
+            probs_equal=bool(torch.equal(got['probs'], want['probs'])),
+            colours_max_abs_diff=float((got['fg'] - want['fg']).abs().max()),
+            whole_batch_rows_equal=int((got['sequences']
+                                        == whole['sequences']).all(1).sum()),
+            rows=rows)
+
+        # the LaMa (f32: K4 and K5 at f32 accuracy) and AOT (f32) batches
+        # on three 512x512 crops of the first page with its stroke mask
+        mask = stroke_mask(pages[0])
+        crops_u8 = np.stack([pages[0][y:y + 512, 0:512]
+                             for y in (0, 512, 1024)])
+        masks_u8 = np.stack([mask[y:y + 512, 0:512] for y in (0, 512, 1024)])
+        cfg32 = InpainterConfig(inpainting_precision=InpaintPrecision.fp32)
+        aot_dtype = inpainting_aot.COMPUTE_DTYPE
+        inpainting_aot.COMPUTE_DTYPE = torch.float32
+        try:
+            for key, inp in (('lama_batch', lam), ('aot_batch', aot_inp)):
+                got, want = split_and_plain(key, lambda inp=inp: (
+                    inp._batch_forward(crops_u8, masks_u8, cfg32)))
+                d = np.abs(got.astype(int) - want.astype(int))
+                out[key].update(max_grey_diff=int(d.max()),
+                                share_differing=float((d > 0).mean()))
+        finally:
+            inpainting_aot.COMPUTE_DTYPE = aot_dtype
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # pipeline_step on the card: detection maps (K1), the beam decode (K2,
+    # K3) and the AOT composite, data-parallel over the two shards
+    step = mesh.pipeline_step(two, None, None, None, beams_k=5, max_len=32)
+    n = 2
+    pg = torch.from_numpy(np.stack([cv2.resize(p, (1024, 1024))
+                                    for p in (pages * 2)[:n]])).to(dev)
+    cr = ((images[:n] + 1.0) * 127.5).round().to(torch.uint8)
+    wd = vw[:n].to(torch.int32)
+    mk = torch.zeros((n, 1024, 1024, 1), device=dev)
+    mk[:, 200:500, 100:700] = 1.0
+    models = (det.model, ocr.model, aot_inp.model)
+    step(models, pg, cr, wd, mk)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    (prob, seqs, probs, inpainted), step_ms = timed(
+        lambda: step(models, pg, cr, wd, mk))
+    launches = cuda_build.launch_counts()
+    out['pipeline_step'] = {
+        'ms': step_ms, 'launches': launches,
+        'shapes': [list(t.shape) for t in (prob, seqs, probs, inpainted)],
+        'finite': bool(torch.isfinite(prob).all()
+                       and torch.isfinite(inpainted).all())}
+
+    # one data-parallel DBNet SGD step on the card against the CPU
+    sd = {k: v.detach() for k, v in det.model.state_dict().items()}
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 256, 256, 3)).astype(np.float32),
+        rng.random((2, 256, 256)).astype(np.float32),
+        rng.random((2, 128, 128)).astype(np.float32))]
+    card_step = mesh.train_step_dbnet(two)
+    card_step(sd, *[a.to(dev) for a in args], 1e-2)
+    (loss, new), train_ms = timed(
+        lambda: card_step(sd, *[a.to(dev) for a in args], 1e-2))
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    cpu_loss, cpu_new = mesh.train_step_dbnet(mesh.make_mesh(
+        devices=['cpu'] * 2, tp=1))(sd_cpu, *args, 1e-2)
+
+    def largest_change(params):
+        return max(float((params[k].float().cpu() - sd_cpu[k].float())
+                         .abs().max()) for k in params)
+    out['train_step_dbnet'] = {
+        'ms': train_ms, 'loss': float(loss), 'cpu_loss': float(cpu_loss),
+        'largest_change': largest_change(new),
+        'cpu_largest_change': largest_change(cpu_new),
+        'on_card': all(v.is_cuda for v in new.values())}
+    emit({'phase': 'mesh', 'mesh': repr(two), 'tolerance': MESH_TOL,
+          'note': 'one physical card twice: the ms are no speed claim',
+          **out})
+
+    require(out['detect_maps']['max_abs_diff'] <= MESH_TOL['maps'],
+            f'detection maps split: {out["detect_maps"]}')
+    require(out['ocr48_memory']['masks_equal']
+            and out['ocr48_memory']['max_abs_diff_over_max']
+            <= MESH_TOL['memory'], f'48px memory split: '
+                                   f'{out["ocr48_memory"]}')
+    require(out['ocr48_decode']['sequences_equal']
+            and out['ocr48_decode']['probs_equal']
+            and out['ocr48_decode']['colours_max_abs_diff']
+            <= MESH_TOL['colours'], f'48px decode split: '
+                                    f'{out["ocr48_decode"]}')
+    for key in ('lama_batch', 'aot_batch'):
+        require(out[key]['max_grey_diff'] <= MESH_TOL['inpaint_grey'],
+                f'{key} split: {out[key]}')
+    ps = out['pipeline_step']
+    require(ps['finite'] and ps['shapes'][0] == [n, 1024, 1024]
+            and all(launches[k] > 0 for k in ('bilateral', 'decode_step',
+                                              'charhead')),
+            f'pipeline_step: {ps}')
+    tr = out['train_step_dbnet']
+    require(tr['on_card'] and abs(tr['loss'] - tr['cpu_loss'])
+            <= MESH_TOL['train_loss'] * abs(tr['cpu_loss'])
+            and abs(tr['largest_change'] - tr['cpu_largest_change'])
+            <= MESH_TOL['train_step'] * tr['cpu_largest_change']
+            and tr['cpu_largest_change'] > 0,
+            f'train_step_dbnet card against CPU: {tr}')
+    return out
+
+
+def phase_studio_gui(page_dir, cfg_path):
+    """The desktop studio's headless view-model runs one job of a smoke
+    page on the card through the real ``MangaTranslatorLocal`` (the
+    smoke's config as its profile, detection at 1024, translator
+    ``original``): the run must finish with the job done, the page
+    written, no stage's error logged (the studio's translator ignores
+    errors, as the JAX package's does) and K1 launched."""
+    import logging
+    import numpy as np
+    from PIL import Image
+    from manga_image_translator_tpu_torch import studio, studio_gui
+    from manga_image_translator_tpu_torch.ops import cuda_build
+    from manga_image_translator_tpu_torch.utils.log import ROOT_LOGGER_NAME
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg['detector']['detection_size'] = 1024
+    cfg['translator']['translator'] = 'original'
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(record.getMessage()[:500])
+    handler = Errors(level=logging.ERROR)
+    saved_dir = studio.PROFILE_DIR
+    studio.PROFILE_DIR = os.path.join(WORK, 'studio')
+    logging.getLogger(ROOT_LOGGER_NAME).addHandler(handler)
+    try:
+        vm = studio_gui.StudioViewModel()
+        vm.set_dest(os.path.join(OUT, 'studio_out'))
+        for section, values in cfg.items():
+            for key, value in values.items():
+                err = vm.set_profile_key(f'{section}.{key}',
+                                         json.dumps(value))
+                require(err is None, f'studio profile {section}.{key}: '
+                                     f'{err}')
+        name = sorted(os.listdir(page_dir))[0]
+        require(vm.add_paths([os.path.join(page_dir, name)]) is None,
+                'studio: the page was not queued')
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        require(vm.start() is None, 'studio: the run did not start')
+        events = []
+        while time.perf_counter() - t0 < 300:
+            events += vm.poll_events()
+            if events and events[-1][0] == 'finished':
+                break
+            time.sleep(0.05)
+        vm.stop()
+        launches = cuda_build.launch_counts()
+        rows = vm.job_rows()
+        history = vm.history_rows()
+    finally:
+        logging.getLogger(ROOT_LOGGER_NAME).removeHandler(handler)
+        studio.PROFILE_DIR = saved_dir
+    written = os.path.join(OUT, 'studio_out', name)
+    shape = (list(np.asarray(Image.open(written)).shape)
+             if os.path.isfile(written) else None)
+    emit({'phase': 'studio_gui', 'seconds': time.perf_counter() - t0,
+          'events': [e[0] for e in events][-12:],
+          'states': [e[1] for e in events if e[0] == 'progress'],
+          'jobs': rows, 'history': history, 'written_shape': shape,
+          'launches': launches, 'errors': errors})
+    require(events and events[-1][0] == 'finished',
+            f'studio: no finished event ({[e[0] for e in events]})')
+    require([r['status'] for r in rows] == ['done'], f'studio jobs {rows}')
+    require(not errors, f'studio: the pipeline logged errors {errors}')
+    require(shape is not None and shape[:2] == [PAGE_H, PAGE_W],
+            f'studio: page written {shape}')
+    require(launches['bilateral'] > 0, f'studio launches {launches}')
+    return launches
+
+
 def phase_breakdown():
     """Where the detect stage's time goes on one pipeline page: the K1
     prefilter, the resize + pad, the DBNet forward (each device-timed) and
@@ -4015,7 +4536,7 @@ def main(argv=None) -> int:
     phase_check(results)
     phase_sugoi_model()
     phase_translate_check()
-    counts, forwards, page_dir, cfg_path, extra = phase_pipeline()
+    counts, forwards, page_dir, cfg_path, extra, boxes = phase_pipeline()
     decode = phase_translate(extra)
     phase_cli(page_dir, cfg_path)
     batch = phase_batch(cfg_path)
@@ -4026,6 +4547,9 @@ def main(argv=None) -> int:
     extras = phase_extras(cfg_path)
     check_extras_kernels(results, extras)
     sd_pass = phase_sd(cfg_path)
+    phase_crops(page_dir, boxes)
+    mesh = phase_mesh(page_dir, boxes)
+    studio_launches = phase_studio_gui(page_dir, cfg_path)
     phase_breakdown()
     phase_times(results, forwards, batch['forwards'])
     per_call = phase_trace()
@@ -4042,6 +4566,9 @@ def main(argv=None) -> int:
             'launches_batch': batch['launches'][name],
             'launches_extras': extras['cli']['launches'][name],
             'launches_sd': sd_pass['cli']['launches'][name],
+            'launches_mesh_pipeline_step':
+                mesh['pipeline_step']['launches'][name],
+            'launches_studio': studio_launches[name],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

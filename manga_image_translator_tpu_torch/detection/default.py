@@ -54,10 +54,20 @@ def _preprocess_batch(imgs: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _detect_maps(model, canvases: torch.Tensor):
-    """Prob/mask maps for a letterboxed page batch on one device: batched
-    bilateral prefilter + one network forward."""
+def _maps_batch(model, canvases: torch.Tensor):
+    """Bilateral prefilter (K1) + DBNet forward on (N, S, S, 3) uint8
+    canvases: the per-shard body of the multi-device detection path."""
     return _forward_batch(model, _preprocess_batch(canvases))
+
+
+@torch.no_grad()
+def _detect_maps(model, canvases: torch.Tensor):
+    """Prob/mask maps for a letterboxed page batch: split over every
+    device of the serving mesh when there is one
+    (``parallel.mesh.get_mesh``), else one batched prefilter + one network
+    forward on the model's device."""
+    from ..parallel.mesh import sharded_batch
+    return sharded_batch(_maps_batch, 'dbnet.maps', model, canvases)
 
 
 class DefaultDetector(OfflineDetector):

@@ -11,6 +11,7 @@ Plain PyTorch on the card (cuDNN convs).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import cv2
@@ -19,6 +20,7 @@ import torch
 
 from ..config import InpainterConfig
 from ..models import aot
+from ..parallel.mesh import sharded_batch
 from .common import OfflineInpainter
 
 PAD_SIZE = 8
@@ -70,7 +72,10 @@ class AotInpainter(OfflineInpainter):
             self.device).float() / 127.5 - 1.0
         msk = (torch.from_numpy(np.ascontiguousarray(mask)).to(
             self.device).float()[..., None] / 255.0 >= 0.5).float()
-        out = _aot_body(self.model, img, msk, COMPUTE_DTYPE)
+        # the batch splits over the serving mesh when there is one
+        out = sharded_batch(functools.partial(_aot_body, dtype=COMPUTE_DTYPE),
+                            ('aot.batch', COMPUTE_DTYPE), self.model, img,
+                            msk)
         return torch.clamp(torch.round((out + 1.0) * 127.5), 0,
                            255).to(torch.uint8)
 

@@ -8,12 +8,13 @@ normalisation, ``img *= (1 - mask)``, the generator in the compute dtype
 ``pred * mask + original * (1 - mask)``.
 
 The checkpoint loads natively (``gen_state_dict``, the generator's own
-keys); BN is folded into the convs once at load. One card: no sharded
-batch. ``LamaMPEInpainter`` (lama_mpe) is the 9-block generator with the
-masked positional encoding: the host BFS encodes each page's or crop's
-mask, ``models.lama.MPE`` embeds it on the device, and the generator adds
-both embeddings to its stem's output; K4 and K5 run through the same
-wrappers as for lama_large.
+keys); BN is folded into the convs once at load. A batch splits over the
+serving mesh's devices when there are several (``parallel.mesh``), and
+runs whole on the one card otherwise. ``LamaMPEInpainter`` (lama_mpe) is
+the 9-block generator with the masked positional encoding: the host BFS
+encodes each page's or crop's mask, ``models.lama.MPE`` embeds it on the
+device, and the generator adds both embeddings to its stem's output; K4
+and K5 run through the same wrappers as for lama_large.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from ..config import InpainterConfig, InpaintPrecision
 from ..models import lama
+from ..parallel.mesh import sharded_batch
 from .common import OfflineInpainter
 
 PAD_SIZE = 8
@@ -127,8 +129,16 @@ class LamaLargeInpainter(OfflineInpainter):
         embeddings = self._embeddings(mask)
         img = self._upload(image).float() / 255.0
         msk = (self._upload(mask).float()[..., None] / 255.0 >= 0.5).float()
-        return _to_u8(_lama_body(self._model_for(dtype), img, msk, dtype,
-                                 embeddings))
+        # the batch splits over the serving mesh when there is one
+        # (parallel.mesh), the embeddings with it
+        extra = tuple(e for e in embeddings if e is not None)
+
+        def body(model, img, msk, *emb):
+            return _lama_body(model, img, msk, dtype,
+                              emb if emb else (None, None))
+        return _to_u8(sharded_batch(
+            body, ('lama.batch', type(self).__name__, dtype, len(extra)),
+            self._model_for(dtype), img, msk, *extra))
 
     def _embeddings(self, mask: np.ndarray):
         """The generator's extra stem inputs for (N, H, W) uint8 masks:

@@ -541,6 +541,38 @@ def beam_decode(model: OCR48, images: torch.Tensor,
                                    max_len, max_finished_hypos, dtype)
 
 
+def sharded_compute_memory(model: OCR48, images: torch.Tensor,
+                           valid_widths: torch.Tensor, bf16_backbone: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """compute_memory split over the crops on every mesh device
+    (zero-width padding rows are cropped back). Without a mesh:
+    compute_memory."""
+    from ..parallel.mesh import sharded_batch
+
+    def fn(m, im, w):
+        return compute_memory(m, im, w, bf16_backbone)
+    return sharded_batch(fn, ('ocr48.memory', bf16_backbone), model, images,
+                         valid_widths)
+
+
+def sharded_beam_decode_from_memory(model: OCR48, memory: torch.Tensor,
+                                    memory_mask: torch.Tensor,
+                                    beams_k: int = 5, max_len: int = 255,
+                                    max_finished_hypos: int = 2) -> dict:
+    """beam_decode_from_memory split over the rows on every mesh device.
+    Padding rows get zero memory with an all-valid mask and are cropped
+    from the result. Without a mesh: beam_decode_from_memory."""
+    from ..parallel.mesh import sharded_batch
+
+    def fn(m, mem, mask):
+        return beam_decode_from_memory(m, mem, mask, beams_k=beams_k,
+                                       max_len=max_len,
+                                       max_finished_hypos=max_finished_hypos)
+    return sharded_batch(fn, ('ocr48.decode_mem', beams_k, max_len,
+                              max_finished_hypos),
+                         model, memory, memory_mask)
+
+
 # --------------------------------------------------------------------------
 # Construction
 # --------------------------------------------------------------------------

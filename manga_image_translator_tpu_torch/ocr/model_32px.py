@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``ocr/model_32px.py`` (reference
 ``ocr/model_32px.py:19-141``: checkpoint ocr.ckpt in ocr.zip, 32 px crops,
 beam k=5, prob threshold 0.2, clipped-mean per-char colours). Crops are
-host cv2 warps (the JAX default), width-sorted and padded into 16-crop
-chunks; each chunk is one backbone + encoder forward and one beam search
-(``models/ocr32.beam_decode``) on the device.
+host cv2 warps (the JAX default; ``MIT_TPU_DEVICE_CROPS=1`` cuts them on
+the device, ``ops.warp.crop_batch_auto``), width-sorted and padded into
+16-crop chunks; each chunk is one backbone + encoder forward and one beam
+search (``models/ocr32.beam_decode``) on the device.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from ..config import OcrConfig
 from ..models import ocr32
 from ..utils.geometry import Quadrilateral
-from .common import OfflineOCR, chunks, pad_chunk, set_line_result
+from .common import (OfflineOCR, chunks, opt_in_crop_mode,
+                     set_line_result)
 from .model_48px import MAX_SEQ_LEN, _placeholder_dictionary, bucket_width
 
 TEXT_HEIGHT = 32
@@ -67,15 +69,12 @@ class Model32pxOCR(OfflineOCR):
                      verbose: bool = False) -> List[Quadrilateral]:
         threshold = 0.2 if config.prob is None else config.prob
 
-        quadrilaterals, region_imgs, perm, is_quadrilaterals = \
-            self._sorted_crops(image, textlines, TEXT_HEIGHT)
+        quadrilaterals, crops, perm, is_quadrilaterals = self._sorted_crops(
+            image, textlines, TEXT_HEIGHT, opt_in_crop_mode())
         out_regions = []
         for indices in chunks(perm, MAX_CHUNK):
-            bw = bucket_width(max(region_imgs[i].shape[1] for i in indices))
-            batch, valid_widths, _ = pad_chunk(region_imgs, indices,
-                                               MAX_CHUNK, bw)
-            images = (torch.from_numpy(batch).to(self.device).float()
-                      / 127.5 - 1.0)
+            bw = bucket_width(max(crops.width(i) for i in indices))
+            images, valid_widths, _ = crops.chunk(indices, MAX_CHUNK, bw)
             ret = ocr32.beam_decode(
                 self.model, images,
                 torch.from_numpy(valid_widths).to(self.device), beams_k=5,

@@ -3,8 +3,12 @@
 Counterpart of the JAX package's ``ocr/model_48px.py`` (reference
 ``ocr/model_48px.py:27-180``: ocr_ar_48px.ckpt + alphabet-all-v7.txt,
 /127.5-1 normalization, beam k=5, prob threshold 0.2, per-char fg/bg colour
-averaging). Crops are host cv2 warps, width-sorted, padded into fixed width
-buckets and 16/24-crop chunks; consecutive same-bucket chunks share one
+averaging). Crops are cut on the device by default (``MIT_TPU_DEVICE_CROPS``
+``auto``, as in the JAX package: the separable resampler of ``ops.warp``
+with the few rotated lines warped by cv2 and patched in; host cv2 warps
+when more than half of a page's lines are rotated; ``0`` forces the host,
+``1`` the device gather), width-sorted, padded into fixed width buckets
+and 16/24-crop chunks; consecutive same-bucket chunks share one
 backbone + encoder forward; each chunk decodes at a short first-tier length
 and re-decodes only its unfinished rows at the full length. Batch mode
 (``infer_pooled``) pools the lines of several pages into the same chunks.
@@ -20,7 +24,7 @@ import torch
 from ..config import OcrConfig
 from ..models import ocr48
 from ..utils.geometry import Quadrilateral
-from .common import (AvgMeter, OfflineOCR, chunks, pad_chunk,
+from .common import (AvgMeter, HostCrops, OfflineOCR, chunks,
                      set_line_result)
 
 TEXT_HEIGHT = 48
@@ -55,6 +59,15 @@ def bucket_width(w: int) -> int:
         if target <= b:
             return b
     return WIDTH_BUCKETS[-1]
+
+
+def crop_mode() -> str:
+    """Where the 48px OCR crops, from ``MIT_TPU_DEVICE_CROPS`` as in the
+    JAX package: ``auto`` (the default) the separable device resampler
+    with rotated lines patched in (``'auto'``), ``0`` the host, any other
+    value the device gather path (``'gather'``)."""
+    value = os.environ.get('MIT_TPU_DEVICE_CROPS', 'auto')
+    return {'0': 'host', 'auto': 'auto'}.get(value, 'gather')
 
 
 def bf16_backbone_enabled() -> bool:
@@ -102,24 +115,24 @@ class Model48pxOCR(OfflineOCR):
         self.model = None
 
     def _compute_memory(self, images, valid_widths):
-        return ocr48.compute_memory(self.model, images, valid_widths,
-                                    bf16_backbone_enabled())
+        return ocr48.sharded_compute_memory(self.model, images, valid_widths,
+                                            bf16_backbone_enabled())
 
     def _decode(self, memory, memory_mask, max_len):
-        return ocr48.beam_decode_from_memory(self.model, memory, memory_mask,
-                                             beams_k=BEAMS, max_len=max_len)
+        return ocr48.sharded_beam_decode_from_memory(
+            self.model, memory, memory_mask, beams_k=BEAMS, max_len=max_len)
 
     async def _infer(self, image: np.ndarray,
                      textlines: List[Quadrilateral], config: OcrConfig,
                      verbose: bool = False, ignore_bubble: int = 0
                      ) -> List[Quadrilateral]:
         threshold = 0.2 if config.prob is None else config.prob
-        quadrilaterals, region_imgs, perm, is_quadrilaterals = \
-            self._sorted_crops(image, textlines, TEXT_HEIGHT)
+        quadrilaterals, crops, perm, is_quadrilaterals = self._sorted_crops(
+            image, textlines, TEXT_HEIGHT, crop_mode())
         out_regions = []
         dump_dirs = [d for _q, d in quadrilaterals] if verbose else None
         for idx, prob, txt, colors in self._read_crops(
-                region_imgs, perm, threshold, dump_dirs):
+                crops, perm, threshold, dump_dirs):
             cur_region = quadrilaterals[idx][0]
             set_line_result(cur_region, txt, prob, colors)
             out_regions.append(cur_region)
@@ -135,7 +148,9 @@ class Model48pxOCR(OfflineOCR):
         """OCR several pages' text lines pooled into shared chunks: the
         lines of all pages are width-sorted together, so sparse pages fill
         one chunk instead of each decoding a partial one. Returns each
-        page's recognised lines, in the order the per-page path gives."""
+        page's recognised lines, in the order the per-page path gives.
+        Crops are host cv2 warps, as in the JAX package: the device
+        resamplers work on one page at a time."""
         threshold = 0.2 if config.prob is None else config.prob
         entries = []          # (page index, quad, direction)
         for pi, tls in enumerate(textlines_list):
@@ -155,16 +170,17 @@ class Model48pxOCR(OfflineOCR):
                        for pi, q, d in entries]
         perm = sorted(range(len(entries)),
                       key=lambda i: region_imgs[i].shape[1])
-        for idx, prob, txt, colors in self._read_crops(region_imgs, perm,
-                                                       threshold):
+        for idx, prob, txt, colors in self._read_crops(
+                HostCrops(region_imgs, self.device), perm, threshold):
             pi, cur_region, _d = entries[idx]
             set_line_result(cur_region, txt, prob, colors)
             out[pi].append(cur_region)
         return out
 
-    def _read_crops(self, region_imgs: List[np.ndarray], perm: List[int],
-                    threshold: float, dump_dirs=None):
-        """Recognise ``region_imgs`` in the order ``perm``: pad them into
+    def _read_crops(self, crops, perm: List[int], threshold: float,
+                    dump_dirs=None):
+        """Recognise the lines of ``crops`` (``HostCrops`` or
+        ``DeviceCrops``) in the order ``perm``: crop them into
         width-bucketed chunks of 16 crops (24 when there are more than 16),
         run one backbone + encoder forward for each run of up to
         ``MEM_GROUP_CHUNKS`` consecutive same-shape chunks, beam-decode each
@@ -177,15 +193,14 @@ class Model48pxOCR(OfflineOCR):
         built = []
         ix = 0
         for indices in chunks(perm, chunk_size):
-            bw = bucket_width(max(region_imgs[i].shape[1] for i in indices))
-            batch, valid_widths, _ = pad_chunk(region_imgs, indices,
-                                               chunk_size, bw)
-            for i, idx in enumerate(indices):
-                if dump_dirs is not None:
-                    self._dump_crop(batch[i], dump_dirs[idx], ix)
-                ix += 1
-            images = (torch.from_numpy(batch).to(self.device).float()
-                      / 127.5 - 1.0)
+            bw = bucket_width(max(crops.width(i) for i in indices))
+            images, valid_widths, _ = crops.chunk(indices, chunk_size, bw)
+            if dump_dirs is not None:
+                batch = torch.round((images + 1.0) * 127.5).to(
+                    torch.uint8).cpu().numpy()
+                for i, idx in enumerate(indices):
+                    self._dump_crop(batch[i], dump_dirs[idx], ix + i)
+            ix += len(indices)
             built.append((indices, images,
                           torch.from_numpy(valid_widths).to(self.device)))
 

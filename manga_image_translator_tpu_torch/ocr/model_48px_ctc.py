@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``ocr/model_48px_ctc.py`` (reference
 ``ocr/model_48px_ctc.py:18-163``: checkpoint ocr-ctc.ckpt +
 alphabet-all-v5.txt, /127.5-1 normalisation, greedy CTC decode with
 blank = 0, per-char 6-channel colours, prob threshold 0.5). Crops are host
-cv2 warps (the JAX default), width-sorted and padded into 16-crop chunks at
+cv2 warps (the JAX default; ``MIT_TPU_DEVICE_CROPS=1`` cuts them on the
+device, ``ops.warp.crop_batch_auto``, unless ``ignore_bubble`` is on),
+width-sorted and padded into 16-crop chunks at
 ``bucket_width(max + 128)``; each chunk is one ``ctc_forward`` on the
 device; the CTC collapse and the colour averaging run on the host.
 """
@@ -19,7 +21,7 @@ from ..config import OcrConfig
 from ..models import ocr48_ctc
 from ..utils.bubble import is_ignore
 from ..utils.geometry import Quadrilateral
-from .common import (AvgMeter, OfflineOCR, chunks, pad_chunk,
+from .common import (AvgMeter, OfflineOCR, chunks, opt_in_crop_mode,
                      set_line_result)
 from .model_48px import _placeholder_dictionary, bucket_width
 
@@ -91,20 +93,20 @@ class Model48pxCTCOCR(OfflineOCR):
         ignore_bubble = config.ignore_bubble
         threshold = 0.5 if config.prob is None else config.prob
 
-        quadrilaterals, region_imgs, perm, is_quadrilaterals = \
-            self._sorted_crops(image, textlines, TEXT_HEIGHT)
-        out_regions = []
         skip = None
+        mode = opt_in_crop_mode()
         if 1 <= ignore_bubble <= 50:
+            # the bubble test reads host crops
+            mode = 'host'
+
             def skip(crop):
                 return is_ignore(crop, ignore_bubble)
+        quadrilaterals, crops, perm, is_quadrilaterals = self._sorted_crops(
+            image, textlines, TEXT_HEIGHT, mode)
+        out_regions = []
         for indices in chunks(perm, MAX_CHUNK):
-            bw = bucket_width(
-                max(region_imgs[i].shape[1] for i in indices) + 128)
-            batch, _, skipped = pad_chunk(region_imgs, indices, MAX_CHUNK,
-                                          bw, skip)
-            images = (torch.from_numpy(batch).to(self.device).float()
-                      / 127.5 - 1.0)
+            bw = bucket_width(max(crops.width(i) for i in indices) + 128)
+            images, _, skipped = crops.chunk(indices, MAX_CHUNK, bw, skip)
             logprobs, colors = ocr48_ctc.ctc_forward(self.model, images)
             texts = decode_ctc(logprobs.cpu().numpy(), colors.cpu().numpy())
 

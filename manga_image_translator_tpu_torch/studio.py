@@ -45,7 +45,8 @@ def set_nested(cfg: dict, key: str, value: str):
     """Set a dotted ``key`` in a config dict to ``value`` (JSON-parsed when
     possible), validating the result against :class:`Config`. Returns
     ``None`` on success; on a validation error the change is rolled back
-    and the error string is returned."""
+    and the error string is returned. Shared by the terminal studio and
+    the GUI (studio_gui.py)."""
     keys = key.split('.')
     node = cfg
     for k in keys[:-1]:

@@ -7,8 +7,9 @@ reorder of the cache, and the ct2 transformer of the translators, the
 networks of the other detectors and inpainters (plain PyTorch; LaMa-MPE
 through K4 and K5), those of the other OCRs, the upscalers and the
 colorizer, the tiny Stable Diffusion networks, the SD inpainter, the ONNX
-evaluator and the multi-label CTC loss with its gradient on the card
-against the CPU.
+evaluator, the multi-label CTC loss with its gradient, the OCR's device
+crops and the DBNet training step on the card against the CPU, and the
+mesh's split calls on two slots of the card against the plain ones.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -895,3 +896,129 @@ def test_ctc_loss_and_gradient_on_card_match_cpu(dev):
     for ref, got in zip(run('cpu'), run(dev)):
         assert float((got - ref).abs().max()) <= 1e-3 * float(
             ref.abs().max())
+
+
+def _smooth_page(h=400, w=600, seed=0):
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (xx * 0.3 + yy * 0.2) % 256
+    img = np.stack([base, 255 - base, (xx * 0.1) % 256], -1)
+    img += rs.randn(h, w, 3) * 3
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def test_device_crops_on_card_match_cpu(dev):
+    """The OCR crops (ops.warp) on the card against the CPU within 2e-5
+    (tests/test_warp_crops.py:166; f32 throughout, TF32 off for matmuls):
+    the separable resampler, a mixed chunk with a host-warped row patched
+    in, and the gather path."""
+    from manga_image_translator_tpu_torch.ops import warp
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    img = _smooth_page()
+    c, s = np.cos(0.25), np.sin(0.25)
+    rot = (np.array([[-120, -25], [120, -25], [120, 25], [-120, 25]])
+           @ np.array([[c, -s], [s, c]]).T + np.array([300, 250]))
+    quads = [Quadrilateral(np.array(p, np.float64), '', 0.9) for p in (
+        [[50, 100], [350, 100], [350, 160], [50, 160]], rot,
+        [[-40, -20], [260, -20], [260, 40], [-40, 40]])]
+    plans = [warp.crop_plan_quad(q, 'h', 48) for q in quads]
+    bw = 512
+    valid = np.array([min(p[0], bw) for p in plans] + [0], np.int32)
+    host = {1: quads[1].get_transformed_region(img, 'h', 48)}
+    page_cpu = torch.from_numpy(img)
+    page_dev = page_cpu.to(dev)
+    cases = {
+        'separable': lambda page: warp.crop_batch_auto(
+            page, np.stack([plans[0][1], plans[2][1]]), valid[[0, 2]], 48,
+            bw),
+        'mixed': lambda page: warp.crop_chunk_mixed(
+            page, plans, [0, 1, 2], host, valid, 48, bw, 4),
+        'gather': lambda page: warp.crop_batch(
+            page, np.stack([p[1] for p in plans]), valid[:3], 48, bw),
+    }
+    for name, fn in cases.items():
+        got = fn(page_dev)
+        assert got.is_cuda, name
+        np.testing.assert_allclose(got.cpu().numpy(), fn(page_cpu).numpy(),
+                                   atol=2e-5, rtol=1e-5, err_msg=name)
+
+
+def test_sharded_batch_on_two_card_slots_matches_plain(dev, monkeypatch):
+    """The serving mesh as [cuda:0] * 2, in f32 without TF32 (cuDNN may
+    pick other algorithms for another batch size): batched detection (K1
+    + DBNet) and the 48px OCR's memory split in two against the plain
+    calls within 1e-4 (the maps' f32 parity bound, ROADMAP §C); the beam
+    decode split against the plain decode of each half, equal (cuBLAS
+    picks its GEMMs by row count, so only the same shapes give the same
+    bits)."""
+    from manga_image_translator_tpu_torch.detection import default
+    from manga_image_translator_tpu_torch.models import dbnet
+    from manga_image_translator_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    rs = np.random.RandomState(3)
+    det = dbnet.build_dbnet(dev, dbnet.init_state_dict())
+    canvases = torch.from_numpy(rs.randint(0, 256, (3, 256, 256, 3)).astype(
+        np.uint8)).to(dev)
+    ocr = ocr48.build_ocr48(64, dev, ocr48.init_state_dict(64))
+    images = torch.from_numpy(rs.uniform(-1, 1, (4, 48, 128, 3)).astype(
+        np.float32)).to(dev)
+    widths = torch.tensor([128, 70, 96, 110], dtype=torch.int32, device=dev)
+
+    def decode(mem, mask):
+        return ocr48.sharded_beam_decode_from_memory(ocr, mem, mask,
+                                                     beams_k=5, max_len=16)
+
+    def run():
+        before = cuda_build.LAUNCHES['bilateral']
+        maps = default._detect_maps(det, canvases)
+        launches = cuda_build.LAUNCHES['bilateral'] - before
+        mem = ocr48.sharded_compute_memory(ocr, images, widths, False)
+        return maps, launches, mem
+    mesh.set_mesh(mesh.make_mesh(devices=[dev, dev]))
+    try:
+        got = run()
+        dec = decode(*got[2])
+    finally:
+        mesh.set_mesh(None)
+    want = run()
+    halves = [decode(got[2][0][sl], got[2][1][sl])
+              for sl in (slice(0, 2), slice(2, 4))]
+    assert got[1] == 2 and want[1] == 1        # one K1 launch per shard
+    for g, w in list(zip(got[0], want[0])) + [(got[2][0], want[2][0])]:
+        assert g.is_cuda and g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-4)
+    assert torch.equal(got[2][1], want[2][1])
+    for key in ('sequences', 'probs', 'fg'):
+        assert torch.equal(dec[key], torch.cat([h[key] for h in halves])), \
+            key
+
+
+def test_train_step_dbnet_on_card_matches_cpu(dev, monkeypatch):
+    """One data-parallel DBNet SGD step on [cuda:0] * 2 (dp 2) against the
+    same step on the CPU, TF32 off: the loss within 1e-4, each parameter
+    within 1e-4 of its largest |value| plus 1e-3 of the step's largest
+    update."""
+    from manga_image_translator_tpu_torch.models import dbnet
+    from manga_image_translator_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    sd = dbnet.init_state_dict()
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 256, 256, 3)).astype(np.float32),
+        rng.random((2, 256, 256)).astype(np.float32),
+        rng.random((2, 128, 128)).astype(np.float32))]
+    cpu_loss, cpu_new = mesh.train_step_dbnet(mesh.make_mesh(
+        devices=['cpu'] * 2, tp=1))(sd, *args, 1e-2)
+    loss, new = mesh.train_step_dbnet(mesh.make_mesh(
+        devices=[dev, dev], tp=1))({k: v.to(dev) for k, v in sd.items()},
+                                   *[a.to(dev) for a in args], 1e-2)
+    assert loss.is_cuda
+    np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-4)
+    top = max((cpu_new[k] - sd[k]).abs().max().item() for k in cpu_new)
+    for k, v in new.items():
+        assert v.is_cuda, k
+        w = cpu_new[k]
+        np.testing.assert_allclose(
+            v.cpu().numpy(), w.numpy(), rtol=0,
+            atol=1e-4 * w.abs().max().item() + 1e-3 * top, err_msg=k)

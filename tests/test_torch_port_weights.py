@@ -236,9 +236,11 @@ def test_load_rejects_missing_and_misshaped(ocr_params):
 
 def test_port_never_imports_jax():
     """The port's main path, CLI, ct2 translators, the other detectors and
-    inpainters and the GIMP export import neither jax nor the JAX package,
+    inpainters, the GIMP export, the device crops, the ops and the mesh
+    import neither jax nor the JAX package,
     nor the packages only other translators need; the
-    serving entry points (gateway, executor, ws worker, studio) import
+    serving entry points (gateway, executor, ws worker, studio and its
+    GUI) import
     neither jax nor the JAX package (a fresh interpreter: this test process
     already has jax)."""
     code = (
@@ -303,6 +305,13 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.utils.safetensors_lite\n'
         'import manga_image_translator_tpu_torch.training\n'
         'import manga_image_translator_tpu_torch.training.ctc\n'
+        '# device crops, morphology and image ops, the mesh\n'
+        'import manga_image_translator_tpu_torch.ops\n'
+        'import manga_image_translator_tpu_torch.ops.warp\n'
+        'import manga_image_translator_tpu_torch.ops.morphology\n'
+        'import manga_image_translator_tpu_torch.ops.image\n'
+        'import manga_image_translator_tpu_torch.parallel\n'
+        'import manga_image_translator_tpu_torch.parallel.mesh\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
@@ -319,6 +328,7 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.mode.share\n'
         'import manga_image_translator_tpu_torch.mode.ws\n'
         'import manga_image_translator_tpu_torch.studio\n'
+        'import manga_image_translator_tpu_torch.studio_gui\n'
         'import manga_image_translator_tpu_torch.utils.threading\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
