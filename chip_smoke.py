@@ -10,7 +10,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, within the stated tolerance (K1 bilateral on
    the 2048x2048 canvas, the 1448x2048 page and uniform random bytes, K2
-   decoder step at N=120 and 80 through a random ancestry table, K3 char
+   decoder step at N=120 and 80 through a random ancestry table, its
+   step passed as a host int and, bit-equal, in device memory, K3 char
    head, K4 FourierUnit, K5 streaming conv), and the whole 18-block LaMa
    generator on a 512² crop in f32 against its plain routes;
 4. writes a synthetic Sugoi model (the default translator's ct2 model at
@@ -31,7 +32,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``python -m manga_image_translator_tpu_torch local`` command in a
    process of its own; prints a ``translate`` line per page (sentences,
    chunks, decoder steps, stage ms, wall ms against device-busy µs per
-   beam step);
+   beam step, the device time from a torch.profiler trace of the search
+   run again as CUDA graphs; the page's Sugoi search run again replayed
+   as CUDA graphs and eagerly: wall ms per step of each, the graphs'
+   capture ms, and tokens, scores and lengths equal bit for bit);
    the batch path: ``translate_batch`` on three pages (``batch``, its
    launch counters set to 0 just before and read just after; the
    detection pre-pass's line lists become the pages' known boxes), which
@@ -89,9 +93,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    plain version and a PyTorch library composite of the same function, and
    computes the least time the card could take (``bound_ms``); traces one
    decoder step + char head (one kernel launch each; K2's phases by its own
-   SM-clock stamps), one whole beam-search step at step 128 (``beam_step``)
-   and one LaMa forward (its device time between K4, K5 and cuDNN); times
-   the OCR stage on one page;
+   SM-clock stamps), one whole beam-search step at step 128 (``beam_step``,
+   replayed as a CUDA graph and run eagerly: ms per step, device busy and
+   span, capture ms) and one LaMa forward (its device time between K4, K5
+   and cuDNN); times the OCR stage on one page with the decode loops
+   replayed as CUDA graphs and eagerly, bit-equal, and on pages of many
+   line widths with a 48px beam loop captured at every search and, for
+   comparison, kept per decode shape (``ocr_shapes``: ms, captures, bytes
+   the kept loops hold);
 6. prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 It exits non-zero on any failure, and when CUDA is unavailable.
@@ -102,9 +111,10 @@ fallback).
 Two more modes compare two checkouts on one card:
 
 * ``--times-only``: builds the kernels, runs step 5's kernel timings, the
-  beam step and the OCR and inpainting stages on one page
-  (``phase_beam_step``, ``phase_ocr_page``, ``phase_inpaint_page``); no
-  checks, no main path. Its last line is a JSON object of those numbers.
+  beam step, the OCR and inpainting stages on one page and a Sugoi decode
+  at the pages' shape (``phase_beam_step``, ``phase_ocr_page``,
+  ``phase_inpaint_page``, ``phase_sugoi_decode``); no checks, no main
+  path. Its last line is a JSON object of those numbers.
 * ``--compare-with DIR --pairs N``: DIR is the root of another checkout
   inside this one (for example the parent commit unpacked with ``git
   archive`` into ``build/parent``). Copies this script there and runs
@@ -409,7 +419,10 @@ def phase_check(results):
             tok = torch.randint(3, 7935, (n,), generator=g, device='cuda')
             out, kn, vn, _ = dops.decode_step(step, embd[tok], w, rot, sk,
                                               sv, mem_k, mem_v, mem_len, src)
-            out2, kn2, vn2, _ = dops.decode_step(step, embd[tok], w, rot,
+            # the second run reads its step from device memory, as the
+            # beam loops' graphs do
+            at = torch.full((), step, dtype=torch.int64, device='cuda')
+            out2, kn2, vn2, _ = dops.decode_step(at, embd[tok], w, rot,
                                                  sk2, sv2, mem_k, mem_v,
                                                  mem_len, src)
             rout, rkn, rvn = dops.decode_step_ref(step, embd[tok], w, rot,
@@ -423,17 +436,20 @@ def phase_check(results):
                 scale = float(b.float().abs().max()) + 1e-6
                 worst = max(worst, d / scale)
                 worst_abs = max(worst_abs, d)
+        repeatable &= torch.equal(sk, sk2) and torch.equal(sv, sv2)
+        dops.raise_step_error('cuda')
         emit({'phase': 'check', 'kernel': 'decode_step', 'n': n,
               's_len': s_len, 'm_len': int(mem_k.shape[1]),
               'steps': len(steps),
               'ancestry': 'random', 'max_rel_err': worst,
               'max_abs_err': worst_abs, 'tol_rel': 0.05,
-              'bitwise_repeatable': repeatable})
+              'bitwise_repeatable_device_step': repeatable})
         worst_all = max(worst_all, worst)
         worst_abs_all = max(worst_abs_all, worst_abs)
         repeatable_all &= repeatable
     require(worst_all < 0.05, f'decode_step: rel err {worst_all} >= 0.05')
-    require(repeatable_all, 'decode_step: two runs on the same inputs differ')
+    require(repeatable_all, 'decode_step: two runs on the same inputs (a '
+            'host step, the same step in device memory) differ')
     results['decode_step']['max_abs_err'] = worst_abs_all
 
     # K3 at N=120 for the released (7935) and placeholder (2322) alphabets
@@ -878,38 +894,38 @@ def crop_routes(log):
             'host': n['host']}
 
 
-def decode_busy_us(call, chunk=2):
-    """Device time per beam step of a recorded decode, by CUDA events: the
-    same search replayed ``chunk`` steps at a time, each chunk enqueued
-    behind ~20 ms of ``torch.cuda._sleep`` so that the host's pace stays
-    out of the number (a chunk is ~600 launches: more would fill the
-    launch queue, and the host would wait for the sleep). Returns (µs per
-    step, the number of chunks whose enqueue outlasted the sleep: those
-    hold idle time)."""
+def decode_busy_us(call):
+    """Device time per beam step of a recorded decode, from a
+    torch.profiler trace of its search run again as the main path runs it
+    (replayed as CUDA graphs; eagerly in a checkout from before them):
+    the time of every kernel, copy and fill the run put on the card, and
+    the span from the first one's start to the last one's end, each over
+    the steps run.
+    Returns (busy µs, span µs) per step."""
+    from torch.profiler import ProfilerActivity, profile
     from manga_image_translator_tpu_torch.translators import ct2_model
     model, kw = call['model'], call['kw']
-    total_ms, late = 0.0, 0
     with torch.inference_mode():
         search = ct2_model.BeamSearch(
             model, *model.prepare(call['batch']),
             max_len=kw.get('max_len', 200),
             rep_penalty=kw.get('repetition_penalty', 3.0),
             beam_size=kw.get('beam_size', 5))
-        while search.t < call['steps']:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            search.run()
             torch.cuda.synchronize()
-            torch.cuda._sleep(SLEEP_CYCLES)
-            a.record()
-            t0 = time.perf_counter()
-            for _ in range(min(chunk, call['steps'] - search.t)):
-                search.step()
-            enqueue_ms = (time.perf_counter() - t0) * 1e3
-            b.record()
-            b.synchronize()
-            total_ms += a.elapsed_time(b)
-            late += enqueue_ms > SLEEP_CYCLES / 1.98e6
-    return total_ms / call['steps'] * 1e3, late
+    path = os.path.join(OUT, 'translate_run_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ks = [e for e in json.load(f)['traceEvents']
+              if e.get('cat') in DEVICE_WORK]
+    os.remove(path)
+    require(search.t == call['steps'] and ks,
+            f'translate: the traced search ran {search.t} steps with '
+            f'{len(ks)} kernels traced (the decode: {call["steps"]} steps)')
+    span = (max(e['ts'] + e['dur'] for e in ks) - min(e['ts'] for e in ks))
+    return (sum(e['dur'] for e in ks) / search.t, span / search.t)
 
 
 def decode_step_work(model, b, rows, s_len, t):
@@ -930,7 +946,8 @@ def decode_step_work(model, b, rows, s_len, t):
 def phase_translate_kernels(call, at=96, steps=8, top=8):
     """Device µs per beam step by kernel over steps ``at`` .. ``at +
     steps`` of a recorded decode (a torch.profiler trace of the replayed
-    search): the ``top`` kernels by time, all kernels' sum and count, the
+    search): the ``top`` kernels (copies and fills included) by time, the
+    sum of all, the count of kernels and of copies and fills, the
     window's span, and the least time the card could take for a step
     (``bound_us``: the larger of its bytes over the HBM rate and its f32
     operations over the CUDA cores' peak, averaged over the window)."""
@@ -943,19 +960,19 @@ def phase_translate_kernels(call, at=96, steps=8, top=8):
             max_len=kw.get('max_len', 200),
             rep_penalty=kw.get('repetition_penalty', 3.0),
             beam_size=kw.get('beam_size', 5))
-        while search.t < at:
-            search.step()
+        search.run(stop=at)
+        require(search.t == at, f'translate_kernels: the search ended at '
+                f'step {search.t}, before {at}')
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                search.step()
+            search.run(stop=at + steps)
             torch.cuda.synchronize()
     path = os.path.join(OUT, 'translate_trace.json')
     prof.export_chrome_trace(path)
     with open(path) as f:
         ks = [e for e in json.load(f)['traceEvents']
-              if e.get('cat') == 'kernel']
+              if e.get('cat') in DEVICE_WORK]
     by = collections.Counter()
     for e in ks:
         by[e['name'][:90]] += e['dur'] / steps
@@ -967,10 +984,14 @@ def phase_translate_kernels(call, at=96, steps=8, top=8):
                        F32_OPS_PER_S) for t in range(at, at + steps)]
     emit({'phase': 'translate_kernels', 'rows': search.bk,
           'source_len': tokens.shape[1],
+          'prefix_len': (search.bucket(min(search.max_len, at + steps))
+                         if hasattr(search, 'bucket') else None),
           'bound_us': statistics.mean(b for b, _ in bounds) * 1e3,
           'bound_by': bounds[0][1],
           'steps': [at, at + steps], 'busy_us': sum(by.values()),
-          'span_us': span, 'kernels': len(ks) / steps,
+          'span_us': span,
+          'kernels': sum(e['cat'] == 'kernel' for e in ks) / steps,
+          'copies_and_fills': sum(e['cat'] != 'kernel' for e in ks) / steps,
           'top_us': dict(by.most_common(top))})
 
 
@@ -978,28 +999,74 @@ def phase_translate(extra):
     """One ``translate`` line per page of the known-box pass: sentences
     (queries) and chunks (sugoi's decoder batch), decoder rows and source
     length, decoder steps, the translate stage's ms, and the decode's wall
-    ms per beam step against its device-busy µs per step. Returns the
-    first page's decode."""
+    ms per beam step against its device-busy µs per step (traced once
+    for pages whose searches have one shape). Returns the first page's
+    decode."""
+    traced = {}     # a search's shape and steps -> its device time
     for name, r in sorted(extra.items()):
         t = r['translate']
         require(len(t['decodes']) == 1,
                 f'{name}: {len(t["decodes"])} decodes in the translate stage')
         call = t['decodes'][0]
-        busy_us, late = decode_busy_us(call)
         tokens = call['model'].prepare(call['batch'])[0]
-        emit({'phase': 'translate', 'page': name, 'translator': 'sugoi',
-              'device': str(call['model'].device),
-              'sentences': t['sentences'], 'chunks': t['chunks'],
-              'beam': call['kw'].get('beam_size'),
-              'rows': tokens.shape[0] * call['kw'].get('beam_size', 5),
-              'source_len': tokens.shape[1], 'steps': call['steps'],
-              'stage_ms': r['stage_ms']['translate'],
-              'decode_wall_ms': call['wall_ms'],
-              'wall_ms_per_step': call['wall_ms'] / call['steps'],
-              'busy_us_per_step': busy_us,
-              'replay_chunks_host_late': late,
-              'translations': t['translations']})
+        key = (tuple(tokens.shape), call['steps'])
+        if key not in traced:
+            traced[key] = decode_busy_us(call)
+        busy_us, span_us = traced[key]
+        line = {'phase': 'translate', 'page': name, 'translator': 'sugoi',
+                'device': str(call['model'].device),
+                'sentences': t['sentences'], 'chunks': t['chunks'],
+                'beam': call['kw'].get('beam_size'),
+                'rows': tokens.shape[0] * call['kw'].get('beam_size', 5),
+                'source_len': tokens.shape[1], 'steps': call['steps'],
+                'stage_ms': r['stage_ms']['translate'],
+                'decode_wall_ms': call['wall_ms'],
+                'wall_ms_per_step': call['wall_ms'] / call['steps'],
+                'busy_us_per_step': busy_us, 'span_us_per_step': span_us,
+                'translations': t['translations']}
+        if device_loops() is not None:
+            line.update(graph_against_eager(call))
+            line['graph_wall_over_busy'] = (
+                line['graph_run_ms'] / line['graph_steps'] * 1e3 / busy_us)
+        emit(line)
     return extra['page0.png']['translate']['decodes'][0]
+
+
+def graph_against_eager(call):
+    """A recorded decode's search run again, replayed as CUDA graphs (the
+    main path) and eagerly: the wall ms of ``run`` (device-synchronised,
+    the encoder and buffers made before), the graphs' capture ms, the
+    prefix buckets, and tokens, scores and lengths equal bit for bit."""
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    model, kw = call['model'], call['kw']
+    out = {}
+    results = []
+    for mode in ('graph', 'eager'):
+        with torch.inference_mode():
+            search = ct2_model.BeamSearch(
+                model, *model.prepare(call['batch']),
+                max_len=kw.get('max_len', 200),
+                rep_penalty=kw.get('repetition_penalty', 3.0),
+                beam_size=kw.get('beam_size', 5))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager_loops() if mode == 'eager' else \
+                    contextlib.nullcontext():
+                best = search.run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        stats = loop_history()[-1]
+        out[f'{mode}_run_ms'] = ms
+        out[f'{mode}_steps'] = search.t
+        out[f'{mode}_ms_per_step'] = ms / search.t
+        if mode == 'graph':
+            out['capture_ms'] = capture_ms([stats])
+            out['prefix_buckets'] = sorted(stats.capture_ms)
+        results.append((best, search.toks, search.scores, search.out_len))
+    require(all(torch.equal(a, b) for a, b in zip(*results)),
+            'translate: the graph-replayed search differs from the eager one')
+    out['equal_to_eager'] = True
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3951,7 +4018,11 @@ def phase_times(results, forwards, batch_forwards=()):
     kw = ({'src': beam_ancestry(step, s_len)} if 'src' in inspect.signature(
         dops.decode_step).parameters else {})
     r = results['decode_step']
-    r['ms'] = cuda_ms(lambda: dops.decode_step(step, tgt, w, rot, sk, sv,
+    # the step as the beam loop passes it: in device memory (a checkout
+    # from before takes a host int)
+    at = (torch.full((), step, dtype=torch.int64, device='cuda')
+          if hasattr(dops, 'raise_step_error') else step)
+    r['ms'] = cuda_ms(lambda: dops.decode_step(at, tgt, w, rot, sk, sv,
                                                mem_k, mem_v, mem_len, **kw))
     r['plain_ms'] = cuda_ms(lambda: dops.decode_step_ref(
         step, tgt, w, rot, sk, sv, mem_k, mem_v, mem_len, **kw), iters=10)
@@ -4185,7 +4256,8 @@ def k2_state(model, n=120, s_len=256, step=128, seed=3):
                      ).to(torch.bfloat16)
     _, _, embd = model.packed(torch.bfloat16)
     tgt = embd[torch.randint(3, 7935, (n,), generator=g, device='cuda')]
-    return (step, tgt, model.packed(torch.bfloat16)[0], rot, sk, sv, mem_k,
+    at = torch.full((), step, dtype=torch.int64, device='cuda')
+    return (at, tgt, model.packed(torch.bfloat16)[0], rot, sk, sv, mem_k,
             mem_v, mem_len, beam_ancestry(step, s_len))
 
 
@@ -4243,12 +4315,45 @@ def phase_trace():
         work[ph] += int(clk[i, 1] - clk[i, 0]) * scale
         if i + 1 < clk.shape[0]:
             wait[ph] += int(clk[i + 1, 0] - clk[i, 1]) * scale
-    emit({'phase': 'trace', 'n': 120, 'step': args[0],
+    emit({'phase': 'trace', 'n': 120, 'step': int(args[0]),
           'm_len': int(args[6].shape[1]), 'kernel_launches_per_call': per_call,
           'us_per_call': us, 'busy_us': busy, 'span_us': span,
           'k2_phase_work_us': dict(work), 'k2_barrier_wait_us': dict(wait),
           'k2_barriers': clk.shape[0] - 1})
     return per_call
+
+
+def device_loops():
+    """This checkout's ``ops.device_loop``, or None in a checkout from
+    before the decode loops ran on the device (``--compare-with``)."""
+    try:
+        from manga_image_translator_tpu_torch.ops import device_loop
+    except ImportError:
+        return None
+    return device_loop
+
+
+def eager_loops():
+    """``device_loop.eager()``: the decode loops run step by step, no CUDA
+    graph (a null context where every loop is eager)."""
+    mod = device_loops()
+    return contextlib.nullcontext() if mod is None else mod.eager()
+
+
+def loop_history() -> list:
+    """The last decode loops' ``LoopStats``, oldest first."""
+    mod = device_loops()
+    return [] if mod is None else list(mod.history)
+
+
+def capture_ms(loops) -> float:
+    """Capture + instantiate ms of every CUDA graph of ``loops``."""
+    return sum(sum(st.capture_ms.values()) for st in loops)
+
+
+# trace categories of device work: kernels, and the copies and fills that
+# ``copy_`` and ``zeros`` put on the stream without a kernel
+DEVICE_WORK = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
 def beam_inputs():
@@ -4276,12 +4381,13 @@ def beam_ancestry(step=128, s_len=256):
     seen = {}
 
     def record(*args):
-        if args[0] == step:          # run_beam passes src last
+        if int(args[0]) == step:     # run_beam passes src last
             seen['src'] = args[-1][:step].clone()
         return step_fn(*args)
     ocr48.decode_ops.decode_step = record
     try:
-        ocr48.run_beam(model, memory, mask, 5, step + 1, 2)
+        with eager_loops():          # the recorder reads the step back
+            ocr48.run_beam(model, memory, mask, 5, step + 1, 2)
     finally:
         ocr48.decode_ops.decode_step = step_fn
     src = torch.arange(120, dtype=torch.int32, device='cuda').expand(
@@ -4294,57 +4400,112 @@ def phase_beam_step(step=128, lo=96, hi=160, repeats=3):
     """One whole step of the beam search (``ocr48.run_beam``) on
     ``beam_inputs``: K2, K3, the beam bookkeeping and the update of the
     ancestry table (a checkout from before the table: its two
-    ``index_select`` reorders of the caches).
+    ``index_select`` reorders of the caches), replayed as a CUDA graph (the
+    main path) and run eagerly (``device_loop.eager``; a checkout from
+    before the device loops has only this).
 
     ``ms_per_step``: host clock around runs of ``hi`` and ``lo`` steps
-    (device-synchronised), the difference over ``hi - lo`` steps (the
-    steps around ``step``), median of ``repeats``. ``busy_us``/``span_us``:
+    (device-synchronised), each less its graph's capture, the difference
+    over ``hi - lo`` steps (the steps around ``step``), median of
+    ``repeats``. ``busy_us``/``span_us``:
     a traced run of ``step + 2`` steps, from the start of the char-head
     kernel of step ``step`` to that of the next step: the device time of
-    every kernel in between, and the window's length."""
+    every kernel, copy and fill in between, and the window's length;
+    ``events_ms_per_step``
+    the same difference of runs timed by CUDA events. ``capture_ms``: the
+    graph's capture and instantiation in the first run of each length
+    (``lo``, ``hi``); ``capture_ms_timed``: the most any timed pair of runs
+    spent capturing (each search captures its own graph). Top-level
+    numbers are the graph's (the eager loop's in a checkout from
+    before)."""
     from torch.profiler import ProfilerActivity, profile
     from manga_image_translator_tpu_torch.models import ocr48
     model, memory, mask = beam_inputs()
 
     def run(max_len):
+        """Host and CUDA-event ms of one search, less its graph's capture
+        (host time, the card idle)."""
         torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        a.record()
         ocr48.run_beam(model, memory, mask, 5, max_len, 2)
+        b.record()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        cap = capture_ms(loop_history()[-1:])
+        return ((time.perf_counter() - t0) * 1e3 - cap,
+                a.elapsed_time(b) - cap)
 
-    run(lo)
-    run(hi)
-    per_step = statistics.median((run(hi) - run(lo)) / (hi - lo)
-                                 for _ in range(repeats))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(step + 2)
-    path = os.path.join(OUT, 'beam_step_trace.json')
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        ks = sorted((e for e in json.load(f)['traceEvents']
-                     if e.get('cat') == 'kernel'), key=lambda e: e['ts'])
-    # the first kernel of each char-head call: this tree's one launch, or
-    # the first of an older tree's three
-    heads = [e['ts'] for e in ks
-             if 'char_topk' in e['name'] or 'pred1_gelu' in e['name']]
-    require(len(heads) == step + 2, f'{len(heads)} char-head calls in a '
-            f'run of {step + 2} steps')
-    t0, t1 = heads[step], heads[step + 1]
-    window = [e for e in ks if t0 <= e['ts'] < t1]
+    def measure(mode):
+        first = []          # warm-up runs, one of each length
+        for max_len in (lo, hi):
+            run(max_len)
+            first.append(capture_ms(loop_history()[-1:]))
+        walls, events, timed = [], [], []
+        for _ in range(repeats):
+            (w_hi, e_hi), (w_lo, e_lo) = run(hi), run(lo)
+            timed.append(capture_ms(loop_history()[-2:]))
+            walls.append((w_hi - w_lo) / (hi - lo))
+            events.append((e_hi - e_lo) / (hi - lo))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(step + 2)
+        path = os.path.join(OUT, f'beam_step_trace_{mode}.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ks = sorted((e for e in json.load(f)['traceEvents']
+                         if e.get('cat') in DEVICE_WORK),
+                        key=lambda e: e['ts'])
+        # the first kernel of each char-head call: this tree's one launch,
+        # or the first of an older tree's three
+        heads = [e['ts'] for e in ks
+                 if 'char_topk' in e['name'] or 'pred1_gelu' in e['name']]
+        r = {'ms_per_step': statistics.median(walls),
+             'events_ms_per_step': statistics.median(events),
+             'capture_ms': first, 'capture_ms_timed': max(timed),
+             'char_head_kernels_traced': len(heads)}
+        if mode == 'graph' and len(heads) != step + 2:
+            # the profiler did not list the graph's kernels one by one:
+            # the CUDA events' figure stands alone
+            r.update(busy_us=None, span_us=None, kernels=None,
+                     copies_and_fills=None)
+            return r
+        require(len(heads) == step + 2,
+                f'beam_step: {len(heads)} char-head kernels traced in the '
+                f'{mode} run, not {step + 2}')
+        t0, t1 = heads[step], heads[step + 1]
+        window = [e for e in ks if t0 <= e['ts'] < t1]
+        r.update(busy_us=sum(e['dur'] for e in window), span_us=t1 - t0,
+                 kernels=sum(e['cat'] == 'kernel' for e in window),
+                 copies_and_fills=sum(e['cat'] != 'kernel' for e in window))
+        return r
+
+    graphs = device_loops() is not None
+    with eager_loops():
+        eager = measure('eager')
     r = {'phase': 'beam_step', 'n': 120, 'm_len': 96, 'step': step,
-         'ms_per_step': per_step, 'steps_timed': [lo, hi],
-         'busy_us': sum(e['dur'] for e in window), 'span_us': t1 - t0,
-         'kernels': len(window)}
+         'steps_timed': [lo, hi], 'eager': eager}
+    top = eager
+    if graphs:
+        top = r['graph'] = measure('graph')
+        require(top['busy_us'] is not None or top['events_ms_per_step'],
+                'beam_step: no device time for the graph loop')
+    r.update({k: top[k] for k in ('ms_per_step', 'busy_us', 'span_us',
+                                  'kernels', 'capture_ms')})
     emit(r)
     return r
 
 
-def phase_ocr_page(repeats=5):
+def phase_ocr_page(repeats=3):
     """Wall ms of the OCR stage (``ocr.dispatch``: crops, memory, the
     two-tier beam decode, colours) on the second synthetic page's 18 known
     text lines, seeded random weights, device-synchronised: one warm-up
-    call (it builds the model), then ``repeats`` timed."""
+    call (it builds the model), then ``repeats`` timed with the decode
+    loops replayed as CUDA graphs (the main path; ``ms``), then
+    ``repeats`` with them run eagerly (``eager_ms``); the two must read
+    the same texts, probabilities and colours, bit for bit. ``capture_ms``:
+    the graphs' capture and instantiation in each timed call (a checkout
+    from before the device loops: eager only)."""
     import cv2
     import numpy as np
     from manga_image_translator_tpu_torch import ocr
@@ -4361,17 +4522,228 @@ def phase_ocr_page(repeats=5):
                  for q in boxes['page1.png']]
         out = asyncio.run(ocr.dispatch(Ocr.ocr48px, img, quads, cfg, 'cuda'))
         torch.cuda.synchronize()
-        return out
+        return [(q.text, q.prob, q.fg_r, q.fg_g, q.fg_b, q.bg_r, q.bg_g,
+                 q.bg_b) for q in out]
+
+    def timed():
+        ms, loops = [], []
+        for _ in range(repeats):
+            before = loop_history()
+            t0 = time.perf_counter()
+            out = run()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            loops.append([st for st in loop_history()
+                          if not any(st is b for b in before)])
+        return out, ms, loops
+
     lines = len(run())
-    ms = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        run()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    out, ms, loops = timed()
     median = statistics.median(ms)
-    emit({'phase': 'ocr_page', 'page': 'page1.png', 'lines': lines, 'ms': ms,
-          'median_ms': median})
-    return median
+    r = {'phase': 'ocr_page', 'page': 'page1.png', 'lines': lines, 'ms': ms,
+         'median_ms': median}
+    if device_loops() is not None:
+        with eager_loops():
+            eager_out, eager_ms, _ = timed()
+        require(out == eager_out, 'ocr_page: the graph-replayed decode '
+                'reads other texts, probabilities or colours than the eager '
+                'one')
+        r.update(eager_ms=eager_ms, eager_median_ms=statistics.median(
+            eager_ms), equal_to_eager=True, loops=len(loops[-1]),
+            steps=[st.stop for st in loops[-1]],
+            capture_ms=[capture_ms(lp) for lp in loops])
+    emit(r)
+    return r
+
+
+# (fewest characters, most characters, lines) of each ``shape_pages`` page
+SHAPE_PAGES = ((3, 8, 12), (6, 14, 20), (10, 24, 28), (20, 48, 14),
+               (3, 48, 40), (6, 14, 20))
+
+
+def shape_pages(seed=5):
+    """Pages (image, quads) of text lines of random lengths, a range of
+    lengths and a line count a page (``SHAPE_PAGES``): the 48px OCR's
+    chunks of 16 and 24 crops fall into width buckets 256 to 1536, and
+    the last page repeats the second one's shapes."""
+    import cv2
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    pages = []
+    for lo, hi, n in SHAPE_PAGES:
+        img = np.full((PAGE_H, PAGE_W, 3), 255, np.uint8)
+        quads = []
+        for i in range(n):
+            text = ''.join(rs.choice(list('ABCDEFGHKMNPRSTUWXYZ '),
+                                     int(rs.randint(lo, hi + 1))))
+            x, y = 40, 50 + i * 50
+            cv2.putText(img, text, (x, y), cv2.FONT_HERSHEY_SIMPLEX, 1.2,
+                        (0, 0, 0), 3)
+            (tw, th), base = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX,
+                                             1.2, 3)
+            x0, y0, x1, y1 = x - 6, y - th - 6, x + tw + 6, y + base + 6
+            quads.append([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+        pages.append((img, quads))
+    return pages
+
+
+def phase_ocr_shapes():
+    """The 48px beam loops on traffic of many decode shapes: the
+    ``shape_pages`` through the OCR stage with a new ``ocr48.BeamLoop``
+    captured at every beam search (``per_search``, the port's way) and
+    with the smoke's own alternative, one loop kept per shape and replayed
+    (``kept``: every shape kept, warmed by the first pass), in the order
+    kept, per_search, kept; in two regimes: random weights,
+    where no beam ends (``full``: every chunk decodes 64 steps, then 255),
+    and END's bias at +8, where every search ends within a few steps
+    (``early``: real lines end in between). For each run: OCR ms a page,
+    and over the run's beam searches their number, distinct shapes,
+    device-synchronised ms, capture ms and warm-up steps. ``kept_bytes``:
+    the kept loops' buffers; ``kept_reserved_bytes``: the allocator's
+    reserve freed by dropping them (graph pools included). Both ways must
+    read the same texts, probabilities and colours."""
+    import gc
+    import numpy as np
+    from manga_image_translator_tpu_torch import ocr
+    from manga_image_translator_tpu_torch.config import Ocr, OcrConfig
+    from manga_image_translator_tpu_torch.models import ocr48
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    pages = [(img, [Quadrilateral(np.array(q), '', 1.0) for q in quads])
+             for img, quads in shape_pages()]
+    cfg = OcrConfig(prob=0.0)
+    backend = ocr.get_ocr(Ocr.ocr48px)
+    # builds the model where nothing did
+    asyncio.run(ocr.dispatch(Ocr.ocr48px, *pages[0], cfg, 'cuda'))
+    model = backend.model
+    beam_loop_cls, run_beam = ocr48.BeamLoop, ocr48.run_beam
+    kept, searches = {}, []
+
+    def kept_loop(model, device, n, k, max_len, m_len, mfh, dt):
+        key = (n, max_len, m_len)
+        if key not in kept:
+            kept[key] = beam_loop_cls(model, device, n, k, max_len, m_len,
+                                      mfh, dt)
+        return kept[key]
+
+    def timed_beam(model, memory, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_beam(model, memory, *args, **kw)
+        torch.cuda.synchronize()
+        searches.append((tuple(memory.shape[:2]) + (args[2],),
+                         (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def reserved_after_gc():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def run_pages(arm):
+        del searches[:]
+        before = loop_history()
+        ms, out = [], []
+        ocr48.run_beam = timed_beam
+        if arm == 'kept':
+            ocr48.BeamLoop = kept_loop
+        try:
+            for img, quads in pages:
+                t0 = time.perf_counter()
+                res = asyncio.run(ocr.dispatch(Ocr.ocr48px, img, quads, cfg,
+                                               'cuda'))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                out.append([(q.text, q.prob, q.fg_r, q.fg_g, q.fg_b, q.bg_r,
+                             q.bg_g, q.bg_b) for q in res])
+        finally:
+            ocr48.BeamLoop, ocr48.run_beam = beam_loop_cls, run_beam
+        loops = [st for st in loop_history()
+                 if not any(st is b for b in before)]
+        require(len(loops) == len(searches),
+                f'ocr_shapes: {len(loops)} loops for {len(searches)} beam '
+                'searches')
+        return out, {'arm': arm, 'ms_per_page': ms, 'page_ms': sum(ms),
+                     'searches': len(searches),
+                     'shapes': len({sh for sh, _ in searches}),
+                     'search_ms': sum(t for _, t in searches),
+                     'capture_ms': capture_ms(loops),
+                     'warmup_steps': sum(st.eager_steps for st in loops),
+                     'steps': sum(st.stop - st.start for st in loops)}
+
+    lines = []
+    end_bias = float(model.pred.bias[ocr48.END_TOK].detach())
+    for regime, bias in (('full', end_bias), ('early', 8.0)):
+        with torch.no_grad():
+            model.pred.bias[ocr48.END_TOK] = bias
+        model._cache.clear()
+        kept.clear()
+        reserved_after_gc()
+        ref, warm = run_pages('kept')
+        runs = []
+        for arm in ('per_search', 'kept'):
+            out, stats = run_pages(arm)
+            require(out == ref, f'ocr_shapes ({regime}, {arm}): other '
+                    'texts, probabilities or colours than the first pass')
+            runs.append(stats)
+        held = sum(t.numel() * t.element_size() for lp in kept.values()
+                   for t in vars(lp).values() if isinstance(t, torch.Tensor))
+        r0 = reserved_after_gc()
+        kept.clear()
+        lines.append({'phase': 'ocr_shapes', 'regime': regime,
+                      'end_bias': bias, 'pages': len(pages),
+                      'lines': [len(q) for _, q in pages],
+                      'shapes_n_m_maxlen': sorted({sh for sh, _ in
+                                                   searches}),
+                      'kept_warmup_run': warm, 'runs': runs,
+                      'kept_bytes': held,
+                      'kept_reserved_bytes': r0 - reserved_after_gc()})
+    with torch.no_grad():
+        model.pred.bias[ocr48.END_TOK] = end_bias
+    model._cache.clear()
+    for line in lines:
+        emit(line)
+    return lines
+
+
+def phase_sugoi_decode(repeats=3):
+    """Wall ms of one Sugoi decode at the smoke pages' shape (18 sentences
+    of 255 random pieces + EOS: source length 256, 90 rows at beam 5; 200
+    steps, since random weights never emit EOS), device-synchronised: one
+    warm-up, then ``repeats`` timed, as the main path runs it and, where
+    the checkout has them, with the decode loops eager. Writes the
+    synthetic model first (``phase_sugoi_model``)."""
+    import numpy as np
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    phase_sugoi_model()
+    root = os.path.join(os.environ['MIT_TPU_MODEL_DIR'], SUGOI_DIR,
+                        'big-ja-en')
+    model = ct2_model.Ct2Transformer(
+        ct2_model.read_ct2_model(os.path.join(root, 'model.bin')),
+        ct2_model.read_config(root), *ct2_model.load_vocabulary(root))
+    rs = np.random.RandomState(0)
+    vocab = model.src_vocab
+    batch = [[vocab[i] for i in rs.randint(4, len(vocab), 255)]
+             for _ in range(18)]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.translate_batch(batch, beam_size=5, max_len=200,
+                              repetition_penalty=3.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()
+    r = {'phase': 'sugoi_decode', 'sentences': len(batch), 'source_len': 256,
+         'ms': [run() for _ in range(repeats)], 'steps': model.last_steps}
+    if device_loops() is not None:
+        with eager_loops():
+            r['eager_ms'] = [run() for _ in range(repeats)]
+    r['median_ms'] = statistics.median(r['ms'])
+    r['eager_median_ms'] = (statistics.median(r['eager_ms'])
+                            if 'eager_ms' in r else None)
+    emit(r)
+    return r
 
 
 def phase_inpaint_page(repeats=5):
@@ -4443,12 +4815,21 @@ def times_only() -> int:
     results = {name: {} for name in META}
     phase_times(results, [SMOKE_FORWARD])
     beam = phase_beam_step()
+    ocr_page = phase_ocr_page()
+    sugoi = phase_sugoi_decode()
     numbers = {'inpaint_page1_ms': phase_inpaint_page(),
-               'ocr_page1_ms': phase_ocr_page(),
+               'sugoi_decode_ms': sugoi['median_ms'],
+               'sugoi_decode_eager_ms': sugoi['eager_median_ms'],
+               'sugoi_ms_per_step': sugoi['median_ms'] / sugoi['steps'],
+               'ocr_page1_ms': ocr_page['median_ms'],
+               'ocr_page1_eager_ms': ocr_page.get('eager_median_ms'),
                'beam_step.ms': beam['ms_per_step'],
                'beam_step.busy_us': beam['busy_us'],
                'beam_step.span_us': beam['span_us'],
-               'beam_step.kernels': beam['kernels']}
+               'beam_step.kernels': beam['kernels'],
+               'beam_step.capture_ms': max(beam['capture_ms']),
+               'beam_step.eager_ms': beam['eager']['ms_per_step'],
+               'beam_step.eager_busy_us': beam['eager']['busy_us']}
     for name, r in results.items():
         for key in ('ms', 'library_ms', 'host_us_per_call'):
             if r.get(key) is not None:
@@ -4503,9 +4884,9 @@ def compare(other: str, pairs: int) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-only', action='store_true',
-                    help='build, time the kernels, the beam step and a '
-                         'page\'s OCR and inpaint, print the numbers last; '
-                         'nothing else')
+                    help='build, time the kernels, the beam step, a '
+                         'page\'s OCR and inpaint and a Sugoi decode, print '
+                         'the numbers last; nothing else')
     ap.add_argument('--compare-with', metavar='DIR',
                     help='another checkout\'s root: alternate --times-only '
                          'runs there and here')
@@ -4537,7 +4918,6 @@ def main(argv=None) -> int:
     phase_sugoi_model()
     phase_translate_check()
     counts, forwards, page_dir, cfg_path, extra, boxes = phase_pipeline()
-    decode = phase_translate(extra)
     phase_cli(page_dir, cfg_path)
     batch = phase_batch(cfg_path)
     check_batch_kernels(results, batch)
@@ -4555,7 +4935,12 @@ def main(argv=None) -> int:
     per_call = phase_trace()
     phase_beam_step()
     phase_ocr_page()
+    phase_ocr_shapes()
     phase_lama_trace(forwards)
+    # the whole-run traces of the Sugoi searches come after the K2 / K3
+    # trace: a CUDA-only profiler session before it left that session
+    # without the ctypes kernels
+    decode = phase_translate(extra)
     phase_translate_kernels(decode)
     kernels = []
     for name, (route, source, replaces) in META.items():

@@ -21,6 +21,13 @@
 // the identity. The beam loop updates the table after each selection and
 // never moves the cache.
 //
+// The step is read from device memory (the JAX kernel's scalar prefetch
+// `step_ref`), once per block, so a beam loop can advance it on the card
+// and replay its steps as a CUDA graph. The kernel indexes the (S, 6, HD)
+// XPOS table by it itself. A step outside 0..s_len-1 launches nothing of
+// the step: block 0 writes the error word (err[0] = 1, err[1] = the step)
+// and every block returns before its first barrier, outputs untouched.
+//
 // What bounds it on the H100: bytes. The step reads all decoder weights
 // once, 5 x (4 E^2 + 2 E FF) x 2 B = 17.2 MB, plus the K/V rows it attends
 // over: 5 x 2 x (step+1) x N x E x 2 B self plus 5 x 2 x M x N x E x 2 B
@@ -86,11 +93,12 @@ static_assert(A_BYTES % 16 == 0, "weight panel must stay 16-byte aligned");
 enum Epi { EPI_QKV, EPI_CROSSQ, EPI_RESID, EPI_RELU };
 
 struct Params {
-  int n, s_len, m_len, step;
+  int n, s_len, m_len;
+  const long long* step;     // 0-d: the position this launch decodes
   bf16* x;                   // (n, E) step input, overwritten with output
   const bf16 *wqkv, *wo, *wcq, *wco, *w1, *w2;
   const float *bqkv, *bo, *bcq, *bco, *ln_w, *ln_b, *b1, *b2;
-  const float* rot;          // (6, HD): this step's XPOS rows
+  const float* rot;          // (s_len, 6, HD): XPOS rows of every step
   bf16 *self_k, *self_v;     // (L, s_len, n, E)
   const bf16 *mem_k, *mem_v; // (L, m_len, n, E)
   const int* mem_len;        // (n)
@@ -99,8 +107,12 @@ struct Params {
   bf16 *q, *attn, *h;        // scratch (n, E), (n, E), (n, FF)
   float* partial;            // (FF2_SPLITS, n, E)
   unsigned* sync;            // [0] barrier, [2..63] FF2 tile counters
+  int* err;                  // (2): set when the step is out of range
   long long* stamps;         // (2 x 40) SM clocks of block 0, or null
 };
+
+// the launch's step, read from p.step by thread 0 of each block at entry
+__shared__ int s_step;
 
 // block 0's SM clock at the start (2i) and at the end (2i + 1) of phase i
 // (the 8 phases of each layer in order): where a step's time goes
@@ -233,7 +245,8 @@ __device__ void stage_a(const Params& p, const Gemm& g, const Unit& t,
     mit::cp_async<16>(uc.bias + 4 * i, g.bias + t.ct_i * g.ct + 4 * i, 16);
   if (g.epi == EPI_QKV || g.epi == EPI_CROSSQ) {
     for (int i = threadIdx.x; i < 6 * HD / 4; i += THREADS)
-      mit::cp_async<16>(uc.rot + 4 * i, p.rot + 4 * i, 16);
+      mit::cp_async<16>(uc.rot + 4 * i,
+                        p.rot + (size_t)s_step * 6 * HD + 4 * i, 16);
   } else if (g.epi == EPI_RESID) {   // ct == 8: one 16-byte piece a row
     for (int r = threadIdx.x; r < t.r_cnt; r += THREADS)
       mit::cp_async<16>(uc.res + 8 * r,
@@ -300,7 +313,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const Gemm& g,
     case EPI_QKV: {
       const int seg = c / E;
       oc = c - seg * E;
-      const size_t at = ((size_t)(l * p.s_len + p.step) * p.n + row) * E + oc;
+      const size_t at = ((size_t)(l * p.s_len + s_step) * p.n + row) * E + oc;
       const size_t at_new = ((size_t)l * p.n + row) * E + oc;
       if (seg == 0) {
         v0 *= scale;
@@ -478,7 +491,7 @@ __device__ void gemm_phase(const Params& p, const Gemm& g, int l,
 // the row of the cache that holds position t of beam row n's history
 __device__ __forceinline__ int history_row(const Params& p, bool self, int t,
                                            int n) {
-  return (self && p.src != nullptr && t < p.step) ? __ldg(p.src + t * p.n + n)
+  return (self && p.src != nullptr && t < s_step) ? __ldg(p.src + t * p.n + n)
                                                   : n;
 }
 
@@ -523,7 +536,7 @@ __device__ void attention_phase(const Params& p, int l, bool self,
   for (int item = pair * gridDim.x + blockIdx.x; item < p.n * NH;
        item += gridDim.x * (WARPS / 2)) {
     const int n = item / NH, hh = item - n * NH;
-    const int T = self ? p.step + 1 : min(max(__ldg(p.mem_len + n), 0), p.m_len);
+    const int T = self ? s_step + 1 : min(max(__ldg(p.mem_len + n), 0), p.m_len);
     bf16* out = p.attn + (size_t)n * E + hh * HD;
     if (T == 0) {
       for (int d = lane; d < HD; d += 32) out[d] = __float2bfloat16(0.0f);
@@ -638,10 +651,26 @@ decode_step_persistent(Params p) {
   __shared__ __align__(16) UnitConsts uc;
   __shared__ int s_last;
 
+  // the first weight panel does not depend on the step: its copies are
+  // in flight while thread 0 reads the step
   Gemm g = layer_gemm(p, 0, 0);
   if ((int)blockIdx.x < g.units()) {
     stage_w(g, blockIdx.x, p.n, Ws);
     mit::cp_commit();
+  }
+  if (threadIdx.x == 0) {
+    const long long step = *p.step;
+    const bool ok = step >= 0 && step < p.s_len;
+    s_step = ok ? (int)step : -1;
+    if (!ok && blockIdx.x == 0) {
+      p.err[1] = (int)step;
+      p.err[0] = 1;
+    }
+  }
+  __syncthreads();
+  if (s_step < 0) {         // every block, before its first barrier
+    mit::cp_wait<0>();
+    return;
   }
   int ph = 0;
   stamp(p, 0);
@@ -674,8 +703,9 @@ int g_grid[16];   // blocks of a launch, per device (0: not yet known)
 //   wqkv (L, E, 3E), bqkv (L, 3E) f32, wo (L, E, E), bo (L, E) f32,
 //   wcq (L, E, E), bcq f32, wco (L, E, E), bco f32, ln_w/ln_b (L, 3, E) f32,
 //   w1 (L, E, FF), b1 (L, FF) f32, w2 (L, FF, E), b2 (L, E) f32.
-// rot: (6, HD) f32 XPOS rows of this step: self-q sin/cos, self-k sin/cos,
-//   cross-q sin/cos.
+// step: a 0-d int64 in device memory, the position to decode.
+// rot: (s_len, 6, HD) f32 XPOS rows of every step: self-q sin/cos, self-k
+//   sin/cos, cross-q sin/cos.
 // tgt (n, E): the step input, overwritten with the step output.
 // self_k/self_v (L, s_len, n, E); mem_k/mem_v (L, m_len, n, E); mem_len (n)
 // int32; src (s_len, n) int32 ancestry or null (identity); k_new/v_new
@@ -684,22 +714,28 @@ int g_grid[16];   // blocks of a launch, per device (0: not yet known)
 // every launch leaves the FF2 tile counters zero and the barrier word's
 // low 31 bits as found, and flips its top bit (39 barriers; grid_sync
 // waits for a flip relative to the value it read) (one buffer per device:
-// launches that share it must not run concurrently); stamps: null, or
+// launches that share it must not run concurrently); err: 2 int32, set to
+// (1, step) by a launch whose step is outside 0..s_len-1 (the caller reads
+// and clears it); stamps: null, or
 // (80) int64 that
 // receive block 0's SM clock at the start and end of each phase.
 // One cooperative launch of one block per SM; returns the launch's
 // cudaError_t (cudaErrorCooperativeLaunchTooLarge if the blocks cannot all
-// be resident), cudaErrorInvalidValue for a shape it does not serve.
+// be resident), cudaErrorInvalidValue for a shape it does not serve. The
+// launch path makes no allocation and no synchronous call, so a stream
+// capture can record it (the kernel's attributes are set at the first
+// call on a device, which a beam loop makes before it captures).
 extern "C" int mit_decode_step(
-    int n, int s_len, int m_len, int step, void* tgt, const void* wqkv,
+    int n, int s_len, int m_len, const void* step, void* tgt, const void* wqkv,
     const void* bqkv, const void* wo, const void* bo, const void* wcq,
     const void* bcq, const void* wco, const void* bco, const void* ln_w,
     const void* ln_b, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* rot, void* self_k, void* self_v,
     const void* mem_k, const void* mem_v, const void* mem_len,
     const void* src, void* k_new, void* v_new, void* q_buf, void* attn_buf,
-    void* h_buf, void* partial, void* sync, void* stamps, void* stream) {
-  if (n < 1 || n > NMAX || step < 0 || step >= s_len || m_len < 1)
+    void* h_buf, void* partial, void* sync, void* err, void* stamps,
+    void* stream) {
+  if (n < 1 || n > NMAX || s_len < 1 || m_len < 1)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -723,7 +759,7 @@ extern "C" int mit_decode_step(
   p.n = n;
   p.s_len = s_len;
   p.m_len = m_len;
-  p.step = step;
+  p.step = (const long long*)step;
   p.x = (bf16*)tgt;
   p.wqkv = (const bf16*)wqkv;
   p.wo = (const bf16*)wo;
@@ -753,6 +789,7 @@ extern "C" int mit_decode_step(
   p.h = (bf16*)h_buf;
   p.partial = (float*)partial;
   p.sync = (unsigned*)sync;
+  p.err = (int*)err;
   p.stamps = (long long*)stamps;
   void* args[] = {&p};
   e = cudaLaunchCooperativeKernel((const void*)decode_step_persistent,

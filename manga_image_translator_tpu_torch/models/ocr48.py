@@ -31,6 +31,7 @@ from torch import nn
 from ..ops import charhead as charhead_ops
 from ..ops import decode_step as decode_ops
 from ..ops.charhead import stable_topk
+from ..ops.device_loop import DeviceLoop
 
 EMBD_DIM = 320
 N_HEADS = 4
@@ -411,10 +412,147 @@ def decode_dtype(device) -> torch.dtype:
         else torch.float32
 
 
-# how often the beam loop reads the all-done flag back to the host; the
-# steps run after every sample latched change nothing (latching only takes
-# newly finished samples)
+# how often the beam loop reads the all-done flag back to the host (the
+# block of ``ops.device_loop``, aligned to multiples: the flag is read
+# before steps 4, 8, ...); the steps run after every sample latched change
+# nothing (latching only takes newly finished samples)
 _DONE_CHECK_EVERY = 4
+
+
+class BeamLoop:
+    """The fixed-shape beam search of one shape (n crops, k beams,
+    ``max_len`` steps, M memory positions, dtype): every buffer the search
+    updates, and the step body that ``ops.device_loop`` replays as a CUDA
+    graph on the card. ``search`` copies its inputs into the buffers and
+    returns copies of its results, so one object can serve several
+    searches of its shape, replaying the graph it captured; ``run_beam``
+    makes one per search: keeping one per shape saved 2.6-3.5% of the OCR
+    stage on pages of many line widths and held 1.0-3.3 GB on the H100
+    (PERF.md, the smoke's ``ocr_shapes``).
+
+    The self-K/V caches are not reset between searches: step t writes
+    position t of every row before any step reads it (through ``src``)."""
+
+    def __init__(self, model: 'OCR48', device, n: int, k: int, max_len: int,
+                 m_len: int, max_finished_hypos: int, dt: torch.dtype):
+        self.n, self.k, self.nk = n, k, n * k
+        self.max_len = max_len
+        self.max_finished_hypos = max_finished_hypos
+        self.w, self.ch, self.embd = model.packed(dt)
+        nk, L = self.nk, decode_ops.L
+        kw = dict(device=device)
+        self.mem_k = torch.empty((L, m_len, nk, EMBD_DIM), dtype=dt, **kw)
+        self.mem_v = torch.empty_like(self.mem_k)
+        self.mem_len = torch.empty((nk,), dtype=torch.int32, **kw)
+        self.self_k = torch.zeros((L, max_len, nk, EMBD_DIM), dtype=dt, **kw)
+        self.self_v = torch.zeros_like(self.self_k)
+        self.outc = torch.empty((nk, max_len, EMBD_DIM), dtype=dt, **kw)
+        self.rot = rot_table(max_len, device)
+        self.ar_nk = torch.arange(nk, **kw)
+        self.ar_n = torch.arange(n, **kw)
+        self.positions = torch.arange(max_len, **kw)
+        # src[t, r]: the cache row holding position t of beam row r's
+        # history
+        self.src = torch.empty((max_len, nk), dtype=torch.int32, **kw)
+        self.step = torch.empty((), dtype=torch.int64, **kw)
+        self.out_idx = torch.empty((nk, max_len + 1), dtype=torch.long, **kw)
+        self.log_probs = torch.empty((nk,), dtype=torch.float32, **kw)
+        self.done = torch.empty((n,), dtype=torch.bool, **kw)
+        self.best_seq = torch.empty((n, max_len + 1), dtype=torch.long, **kw)
+        self.best_logprob = torch.empty((n,), dtype=torch.float32, **kw)
+        self.row_src = torch.empty((nk, max_len), dtype=torch.long, **kw)
+        self.best_row_src = torch.empty((n, max_len), dtype=torch.long, **kw)
+        self.loop = DeviceLoop(device)
+
+    def decode(self, tok: torch.Tensor) -> torch.Tensor:
+        out, _, _, _ = decode_ops.decode_step(
+            self.step, self.embd[tok], self.w, self.rot, self.self_k,
+            self.self_v, self.mem_k, self.mem_v, self.mem_len, self.src)
+        self.outc.index_copy_(1, self.step.view(1), out[:, None])
+        return out
+
+    def latch(self, newly_done: torch.Tensor) -> None:
+        # torch.where, not boolean-mask assignment: a mask index would wait
+        # for the device every step
+        n, k = self.n, self.k
+        lp = self.log_probs.view(n, k)
+        best_beam = lp.argmax(dim=1)
+        flat = self.ar_n * k + best_beam
+        take = newly_done[:, None]
+        self.best_seq.copy_(torch.where(take, self.out_idx[flat],
+                                        self.best_seq))
+        self.best_logprob.copy_(torch.where(
+            newly_done, lp[self.ar_n, best_beam], self.best_logprob))
+        self.best_row_src.copy_(torch.where(take, self.row_src[flat],
+                                            self.best_row_src))
+        self.done.logical_or_(newly_done)
+
+    def body(self, _=None) -> None:
+        """One step at the device position ``step``; every buffer it
+        changes is updated in place, so a CUDA graph of it can be
+        replayed."""
+        n, k, nk = self.n, self.k, self.nk
+        step, out_idx, ar_n = self.step, self.out_idx, self.ar_n
+        at = step.expand(nk, 1)
+        last_tok = out_idx.gather(1, at).view(nk)
+        decoded = self.decode(last_tok)
+        top_v, top_i = charhead_ops.char_topk(decoded, self.ch, k)
+        finished = (last_tok == END_TOK)[:, None]
+        top_v = torch.where(finished, torch.zeros_like(top_v), top_v)
+        top_i = torch.where(finished, torch.full_like(top_i, END_TOK), top_i)
+        cand = (self.log_probs[:, None] + top_v).view(n, k * k)
+        sel_v, sel_flat = stable_topk(cand, k)
+        parent = sel_flat // k
+        new_tok_idx = sel_flat % k
+        parent_flat = (ar_n[:, None] * k + parent).view(-1)
+        out_idx.copy_(out_idx[parent_flat])
+        tok = top_i.view(n, k, k)[ar_n[:, None], parent,
+                                  new_tok_idx].view(-1)
+        out_idx.scatter_(1, at + 1, tok[:, None])
+        # each new row inherits its parent's history, position step
+        # included (src[step] is still the identity there); later
+        # positions keep the identity
+        self.src.copy_(torch.where(self.positions[:, None] <= step,
+                                   self.src[:, parent_flat], self.src))
+        self.row_src.scatter_(1, at, self.ar_nk[:, None])
+        self.row_src.copy_(self.row_src[parent_flat])
+        self.log_probs.copy_(sel_v.reshape(-1))
+        fin = (tok == END_TOK).view(n, k)
+        self.latch((fin.sum(dim=1) >= self.max_finished_hypos) & ~self.done)
+        step.add_(1)
+
+    def search(self, mem_k: torch.Tensor, mem_v: torch.Tensor,
+               mem_len: torch.Tensor) -> dict:
+        k, nk, max_len = self.k, self.nk, self.max_len
+        self.mem_k.copy_(mem_k)
+        self.mem_v.copy_(mem_v)
+        self.mem_len.copy_(mem_len)
+        self.outc.zero_()
+        self.src.copy_(self.ar_nk.to(torch.int32).expand(max_len, nk))
+        self.step.zero_()
+        self.out_idx.fill_(END_TOK)
+        self.out_idx[:, 0] = START_TOK
+        top_v, top_i = charhead_ops.char_topk(self.decode(self.out_idx[:, 0]),
+                                              self.ch, k)
+        beam_pos = self.ar_nk % k
+        self.out_idx[:, 1] = top_i[self.ar_nk, beam_pos]
+        self.log_probs.copy_(top_v[self.ar_nk, beam_pos])
+        self.step.fill_(1)
+        self.done.zero_()
+        self.best_seq.fill_(END_TOK)
+        self.best_logprob.fill_(float('-inf'))
+        self.row_src.copy_(self.ar_nk[:, None].expand(nk, max_len))
+        self.best_row_src.zero_()
+
+        self.loop.run(self.body, 1, max_len, _DONE_CHECK_EVERY,
+                      self.done.all)
+        self.latch(~self.done)
+        if self.step.device.type == 'cuda':
+            decode_ops.raise_step_error(self.step.device)
+        colors = self.outc[self.best_row_src, self.positions[None, :]]
+        return {'best_seq': self.best_seq.clone(),
+                'best_logprob': self.best_logprob.clone(),
+                'best_colors': colors}
 
 
 @torch.no_grad()
@@ -427,90 +565,21 @@ def run_beam(model: OCR48, memory: torch.Tensor, memory_mask: torch.Tensor,
     step. The self-K/V cache never moves: each beam row reads its history
     through the ancestry table ``src`` (``ops.decode_step``), which follows
     the beam parents; colour rows are recovered after the loop from
-    ``row_src``."""
+    ``row_src``.
+
+    As the JAX package's ``while_loop``, the loop lives on the device: the
+    step is a 0-d int64 tensor that K2 reads from device memory, and steps
+    1.. are one fixed-shape body over buffers updated in place
+    (``BeamLoop``), which ``ops.device_loop`` replays as a CUDA graph on
+    the card (eagerly on the CPU), reading the all-done flag once every
+    ``_DONE_CHECK_EVERY`` steps."""
     dev = memory.device
     dt = dtype or decode_dtype(dev)
-    n = memory.shape[0]
-    k = beams_k
-    nk = n * k
-    w, ch, embd = model.packed(dt)
-    mem_k, mem_v, mem_len = init_memory_kv(model, memory, memory_mask, k, dt)
-    cache_shape = (decode_ops.L, max_len, nk, EMBD_DIM)
-    self_k = torch.zeros(cache_shape, dtype=dt, device=dev)
-    self_v = torch.zeros(cache_shape, dtype=dt, device=dev)
-    outc = torch.zeros((nk, max_len, EMBD_DIM), dtype=dt, device=dev)
-    rot = rot_table(max_len, dev)
-    ar_nk = torch.arange(nk, device=dev)
-    ar_n = torch.arange(n, device=dev)
-    # src[t, r]: the cache row holding position t of beam row r's history
-    src = ar_nk.to(torch.int32).expand(max_len, nk).contiguous()
-
-    def step_fn(step, tok):
-        out, _, _, _ = decode_ops.decode_step(step, embd[tok], w, rot, self_k,
-                                              self_v, mem_k, mem_v, mem_len,
-                                              src)
-        outc[:, step] = out
-        return out
-
-    out_idx = torch.full((nk, max_len + 1), END_TOK, dtype=torch.long,
-                         device=dev)
-    out_idx[:, 0] = START_TOK
-    decoded = step_fn(0, out_idx[:, 0])
-    top_v, top_i = charhead_ops.char_topk(decoded, ch, k)
-    beam_pos = ar_nk % k
-    out_idx[:, 1] = top_i[ar_nk, beam_pos]
-    log_probs = top_v[ar_nk, beam_pos]
-
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    best_seq = torch.full((n, max_len + 1), END_TOK, dtype=torch.long,
-                          device=dev)
-    best_logprob = torch.full((n,), float('-inf'), device=dev)
-    row_src = ar_nk[:, None].expand(nk, max_len).clone()
-    best_row_src = torch.zeros((n, max_len), dtype=torch.long, device=dev)
-
-    def latch(newly_done):
-        # torch.where, not boolean-mask assignment: a mask index would wait
-        # for the device every step
-        lp = log_probs.view(n, k)
-        best_beam = lp.argmax(dim=1)
-        flat = ar_n * k + best_beam
-        take = newly_done[:, None]
-        best_seq.copy_(torch.where(take, out_idx[flat], best_seq))
-        best_logprob.copy_(torch.where(newly_done, lp[ar_n, best_beam],
-                                       best_logprob))
-        best_row_src.copy_(torch.where(take, row_src[flat], best_row_src))
-        done.logical_or_(newly_done)
-
-    for step in range(1, max_len):
-        if step % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
-        last_tok = out_idx[:, step]
-        decoded = step_fn(step, last_tok)
-        top_v, top_i = charhead_ops.char_topk(decoded, ch, k)
-        finished = (last_tok == END_TOK)[:, None]
-        top_v = torch.where(finished, torch.zeros_like(top_v), top_v)
-        top_i = torch.where(finished, torch.full_like(top_i, END_TOK), top_i)
-        cand = (log_probs[:, None] + top_v).view(n, k * k)
-        sel_v, sel_flat = stable_topk(cand, k)
-        parent = sel_flat // k
-        new_tok_idx = sel_flat % k
-        parent_flat = (ar_n[:, None] * k + parent).view(-1)
-        out_idx = out_idx[parent_flat]
-        tok = top_i.view(n, k, k)[ar_n[:, None], parent,
-                                  new_tok_idx].view(-1)
-        out_idx[:, step + 1] = tok
-        # each new row inherits its parent's history, position step
-        # included (src[step] is still the identity there)
-        src[:step + 1] = src[:step + 1, parent_flat]
-        row_src[:, step] = ar_nk
-        row_src = row_src[parent_flat]
-        log_probs = sel_v.reshape(-1)
-        fin = (tok == END_TOK).view(n, k)
-        latch((fin.sum(dim=1) >= max_finished_hypos) & ~done)
-    latch(~done)
-    colors = outc[best_row_src, torch.arange(max_len, device=dev)[None, :]]
-    return {'best_seq': best_seq, 'best_logprob': best_logprob,
-            'best_colors': colors}
+    mem_k, mem_v, mem_len = init_memory_kv(model, memory, memory_mask,
+                                           beams_k, dt)
+    return BeamLoop(model, dev, memory.shape[0], beams_k, max_len,
+                    mem_k.shape[1], max_finished_hypos, dt).search(
+                        mem_k, mem_v, mem_len)
 
 
 @torch.no_grad()

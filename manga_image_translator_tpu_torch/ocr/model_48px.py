@@ -38,7 +38,8 @@ WIDTH_BUCKETS = (64, 128, 192, 256, 384, 512, 768, 1024, 1536)
 # bound it with MIT_TPU_OCR_MAX_LEN, as they do for the JAX package
 MAX_SEQ_LEN = int(os.environ.get('MIT_TPU_OCR_MAX_LEN', 255))
 # first-tier decode budget: rows that do not finish re-decode at MAX_SEQ_LEN
-FAST_SEQ_LEN = 64
+# (MIT_TPU_OCR_FAST_LEN, as in the JAX package)
+FAST_SEQ_LEN = int(os.environ.get('MIT_TPU_OCR_FAST_LEN', 64))
 BEAMS = 5
 
 

@@ -73,7 +73,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, radius: int,
                 float(sigma_color), float(sigma_space),
                 cuda_build.current_stream(x.device))
     cuda_build.check(status, 'bilateral kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+    cuda_build.count_launch(KERNEL)
 
 
 def bilateral_filter_batch(imgs: torch.Tensor, d: int = 17,

@@ -15,7 +15,9 @@ erf GELU. Top-k order: larger value first, ties to the lower index.
 * ``char_topk_ref`` is the plain PyTorch version; ``char_topk`` the
   wrapper: CPU tensors take the plain version, CUDA tensors launch
   ``csrc/charhead.cu`` (bf16 only; one cooperative launch per call) or
-  raise.
+  raise. The launch allocates only its scratch (from PyTorch's allocator)
+  and runs on the current stream, so a beam loop's CUDA graph capture
+  records it; its grid-barrier buffer is made at the first eager call.
 """
 from __future__ import annotations
 
@@ -101,7 +103,7 @@ def _launch(dec: torch.Tensor, w: Dict[str, torch.Tensor], k: int
         p(pidx), p(out_val), p(out_idx),
         p(cuda_build.sync_buffer(KERNEL, dev)), cuda_build.current_stream(dev))
     cuda_build.check(status, 'char-head top-k kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+    cuda_build.count_launch(KERNEL)
     return out_val, out_idx
 
 

@@ -152,5 +152,5 @@ def conv2d_stream(x: torch.Tensor, w: torch.Tensor,
             p(x), p(w32), p(b32) if b32 is not None else None, p(out),
             n, hp, wp, cin, kh, kw, cout, int(relu), stream)
     cuda_build.check(status, 'conv_stream kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+    cuda_build.count_launch(KERNEL)
     return out

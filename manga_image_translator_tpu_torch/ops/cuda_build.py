@@ -11,10 +11,17 @@ loaded (``entry``), not at every launch.
 
 Every kernel wrapper keeps a plain-integer launch counter here:
 ``LAUNCHES[name]`` grows by one each time the wrapper launches its kernel
-(whichever of the library's entry points it calls).
+(whichever of the library's entry points it calls), through
+``count_launch``. A wrapper called while its thread captures a CUDA graph
+(inside ``capture_tally``) counts into that capture's own tally instead,
+which ``ops.device_loop`` adds to ``LAUNCHES`` at every replay of the
+graph, so the counters stay the number of launches that ran, also while
+other threads launch kernels during the capture.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,7 +53,7 @@ SOURCES = {
 ENTRY_POINTS = {
     'bilateral': ('bilateral', 'mit_bilateral_u8',
                   [_P, _P, _I, _I, _I, _I, _F, _F, _P]),
-    'decode_step': ('decode_step', 'mit_decode_step', [_I] * 4 + [_P] * 31),
+    'decode_step': ('decode_step', 'mit_decode_step', [_I] * 3 + [_P] * 33),
     'charhead': ('charhead', 'mit_char_topk', [_P] * 5 + [_I] * 3 + [_P] * 9),
     'fourier_unit': ('fourier_unit', 'mit_fourier_unit',
                      [_P] * 10 + [_I] * 5 + [_P]),
@@ -70,6 +77,32 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, Callable[..., int]] = {}
 _lock = threading.Lock()
+
+
+_capture = threading.local()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: into ``LAUNCHES``, or into the tally
+    of the capture this thread runs (``capture_tally``)."""
+    tally = getattr(_capture, 'tally', None)
+    if tally is None:
+        LAUNCHES[name] += 1
+    else:
+        tally[name] += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Inside the block, this thread's launches are counted in the yielded
+    ``Counter``, not in ``LAUNCHES`` (a CUDA graph capture: its kernels run
+    when the graph is replayed)."""
+    prev = getattr(_capture, 'tally', None)
+    _capture.tally = tally = collections.Counter()
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
 
 
 def reset_launch_counts() -> None:
@@ -164,6 +197,25 @@ def check(status: int, what: str) -> None:
 _sync_buffers: Dict[tuple, object] = {}
 
 
+def persistent_zeros(store: dict, key, words: int, device):
+    """``store[key]``: an int32 buffer of ``words`` words on ``device``,
+    zeroed when it is first asked for and kept for the process. A CUDA
+    graph records the buffer's address, so it must exist before a capture
+    that uses it: asked for the first time during a capture, it raises
+    (a beam loop runs its first step eagerly before it captures)."""
+    import torch
+    buf = store.get(key)
+    if buf is None:
+        if (torch.device(device).type == 'cuda'
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f'buffer {key} of a kernel is first asked for '
+                               'during a CUDA graph capture: run the step '
+                               'once eagerly before capturing it')
+        buf = torch.zeros(words, dtype=torch.int32, device=device)
+        store[key] = buf
+    return buf
+
+
 def sync_buffer(name: str, device):
     """An int32 buffer of 64 words, zeroed once, for the grid barrier
     (and counters) of kernel ``name``'s persistent launches on ``device``,
@@ -171,17 +223,14 @@ def sync_buffer(name: str, device):
     leaves its counters zero and the barrier word's low 31 bits as it found
     them (``grid_sync`` waits for a flip of the top bit, which an odd
     number of barriers in a launch leaves flipped). Launches that share it
-    run on one stream."""
-    import torch
-    key = (name, str(device))
-    buf = _sync_buffers.get(key)
-    if buf is None:
-        buf = torch.zeros(64, dtype=torch.int32, device=device)
-        _sync_buffers[key] = buf
-    return buf
+    run on one stream, or in turn."""
+    return persistent_zeros(_sync_buffers, (name, str(device)), 64, device)
 
 
 def current_stream(device) -> ctypes.c_void_p:
+    """The stream PyTorch's current stream context names on ``device``: a
+    graph capture's stream while one runs, so launches made there are
+    recorded into the graph."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 

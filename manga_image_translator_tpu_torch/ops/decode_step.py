@@ -15,6 +15,13 @@ The port's own layout (no TPU lane padding):
   memory mask is a prefix mask);
 * ``rot (S, 6, HD)`` f32 XPOS rows per step: self-q sin/cos, self-k sin/cos,
   cross-q sin/cos (``models.ocr48.xpos_step_tables``);
+* the step as an ``int`` or a 0-d int64 tensor on the device of ``tgt``
+  (the JAX kernel's scalar prefetch): the kernel reads it from device
+  memory, so a beam loop advances it on the card and replays its steps as
+  a CUDA graph (``ops.device_loop``). A device step outside ``0..S-1``
+  makes the launch write the per-device error word and return;
+  ``raise_step_error`` reads the word once, after the loop. A host
+  ``int`` is checked before the launch;
 * the beam's history as an ancestry table ``src (S, N)`` int32:
   ``src[t, n]`` is the cache row that holds position t of row n's history,
   for t < step; position ``step`` is row n itself. ``None`` is the identity.
@@ -34,7 +41,6 @@ call) or raise.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -131,7 +137,20 @@ def _history_rows(step: int, n: int, src: Optional[torch.Tensor], device
     return rows
 
 
-def decode_step_ref(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
+def _host_step(step, s_len: int) -> int:
+    """The plain version's step: an ``int``, or a 0-d tensor on the CPU
+    read with ``item()``; raises outside ``0..s_len-1``."""
+    if isinstance(step, torch.Tensor):
+        if step.device.type != 'cpu' or step.dim() != 0:
+            raise ValueError('decode_step_ref: the step must be an int or '
+                             'a 0-d CPU tensor')
+        step = int(step.item())
+    if not 0 <= step < s_len:
+        raise ValueError(f'decode_step: step {step} outside 0..{s_len - 1}')
+    return step
+
+
+def decode_step_ref(step, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
                     rot: torch.Tensor, self_k: torch.Tensor,
                     self_v: torch.Tensor, mem_k: torch.Tensor,
                     mem_v: torch.Tensor, mem_len: torch.Tensor,
@@ -139,7 +158,9 @@ def decode_step_ref(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version; updates self_k/self_v at ``step`` in place and returns
     (out (N, E), k_new (L, N, E), v_new (L, N, E)). Self-attention reads
-    each position's row through ``src`` (see the module note)."""
+    each position's row through ``src`` (see the module note). ``step``:
+    an ``int`` or a 0-d CPU tensor."""
+    step = _host_step(step, self_k.shape[1])
     dt = self_k.dtype
     n = tgt.shape[0]
     m = mem_k.shape[1]
@@ -226,6 +247,31 @@ def _check_weights(w: Dict[str, torch.Tensor], device) -> None:
 
 _weights = cuda_build.CheckedWeights(WEIGHT_KEYS, _check_weights)
 
+_error_words: Dict[str, torch.Tensor] = {}
+
+
+def _error_word(device) -> torch.Tensor:
+    """The (2,) int32 word of ``device`` that a launch with an
+    out-of-range device step sets to (1, step); zeroed once, allocated
+    before any capture (``cuda_build.persistent_zeros``)."""
+    return cuda_build.persistent_zeros(_error_words, str(device), 2, device)
+
+
+def raise_step_error(device) -> None:
+    """Read (one host read) and clear the error word of ``device``; raise
+    if a launch since the last read had its step outside the cache."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    word = _error_words.get(str(device))
+    if word is None:
+        return
+    flag, step = word.tolist()
+    if flag:
+        word.zero_()
+        raise ValueError(f'decode_step: device step {step} outside the '
+                         'cache; the launch wrote nothing')
+
 
 def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len, src,
             stamps=None):
@@ -245,8 +291,13 @@ def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len, src,
                          f'memory (M={m_len})')
     if src is not None:
         _check('src', src, torch.int32, (s_len, n), dev)
-    if not 0 <= step < s_len:
-        raise ValueError(f'decode_step: step {step} outside 0..{s_len - 1}')
+    if isinstance(step, torch.Tensor):
+        _check('step', step, torch.int64, (), dev)
+    else:
+        if not 0 <= step < s_len:
+            raise ValueError(f'decode_step: step {step} outside '
+                             f'0..{s_len - 1}')
+        step = torch.full((), step, dtype=torch.int64, device=dev)
     weight_ptrs = _weights.pointers(w, dev)
 
     out = tgt.clone()
@@ -258,16 +309,14 @@ def _launch(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len, src,
     partial = torch.empty((FF2_SPLITS, n, E), dtype=_F32, device=dev)
     p = cuda_build.ptr
     status = cuda_build.entry(KERNEL)(
-        n, s_len, m_len, int(step), p(out), *weight_ptrs,
-        ctypes.c_void_p(rot.data_ptr() + step * rot.stride(0)
-                        * rot.element_size()),
+        n, s_len, m_len, p(step), p(out), *weight_ptrs, p(rot),
         p(self_k), p(self_v), p(mem_k), p(mem_v), p(mem_len),
         None if src is None else p(src), p(k_new), p(v_new), p(q_buf),
         p(attn_buf), p(h_buf), p(partial),
-        p(cuda_build.sync_buffer(KERNEL, dev)),
+        p(cuda_build.sync_buffer(KERNEL, dev)), p(_error_word(dev)),
         None if stamps is None else p(stamps), cuda_build.current_stream(dev))
     cuda_build.check(status, 'decode-step kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+    cuda_build.count_launch(KERNEL)
     return out, k_new, v_new
 
 
@@ -289,12 +338,13 @@ def phase_clocks(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len,
     return stamps.view(L * len(PHASES), 2)
 
 
-def decode_step(step: int, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
+def decode_step(step, tgt: torch.Tensor, w: Dict[str, torch.Tensor],
                 rot: torch.Tensor, self_k: torch.Tensor, self_v: torch.Tensor,
                 mem_k: torch.Tensor, mem_v: torch.Tensor,
                 mem_len: torch.Tensor, src: Optional[torch.Tensor] = None):
-    """One decoder step for (N,) beam rows at position ``step``, the
-    history read through the ancestry table ``src`` (None: identity).
+    """One decoder step for (N,) beam rows at position ``step`` (an
+    ``int``, or a 0-d int64 tensor on ``tgt``'s device), the history read
+    through the ancestry table ``src`` (None: identity).
 
     Returns ``(out (N, E), k_new (L, N, E), v_new (L, N, E), (self_k,
     self_v))``; the caches are updated in place at ``step``."""

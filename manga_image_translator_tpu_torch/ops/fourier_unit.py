@@ -226,5 +226,5 @@ def fourier_unit(x: torch.Tensor, w_spec: torch.Tensor,
         x.data_ptr(), out.data_ptr(), wq.data_ptr(), bq.data_ptr(), *tables,
         s0, s0 + half, *dims, cuda_build.current_stream(x.device))
     cuda_build.check(status, 'fourier_unit kernel')
-    cuda_build.LAUNCHES[KERNEL] += 1
+    cuda_build.count_launch(KERNEL)
     return out

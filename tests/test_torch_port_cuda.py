@@ -8,8 +8,13 @@ networks of the other detectors and inpainters (plain PyTorch; LaMa-MPE
 through K4 and K5), those of the other OCRs, the upscalers and the
 colorizer, the tiny Stable Diffusion networks, the SD inpainter, the ONNX
 evaluator, the multi-label CTC loss with its gradient, the OCR's device
-crops and the DBNet training step on the card against the CPU, and the
-mesh's split calls on two slots of the card against the plain ones.
+crops and the DBNet training step on the card against the CPU, the
+mesh's split calls on two slots of the card against the plain ones, and
+the decode loops on the device: K2 with its step in device memory against
+a host step, its out-of-range step raised after the loop, and the 48px
+and Sugoi beam searches replayed as CUDA graphs against the same bodies
+run eagerly (``ops.device_loop.eager``), bit for bit, launch counts
+included.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither JAX nor the JAX package, so that it also runs on a
@@ -17,6 +22,8 @@ machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +33,7 @@ from manga_image_translator_tpu_torch.ops import (bilateral, charhead,
                                                   conv_stream, cuda_build,
                                                   fourier_unit)
 from manga_image_translator_tpu_torch.ops import decode_step as dops
+from manga_image_translator_tpu_torch.ops import device_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -217,18 +225,20 @@ def test_decode_step_kernel_ancestry_matches_plain(dev, full_models, n,
 def _physical_reorder(decode_step):
     """``decode_step`` as a beam search without an ancestry table would run
     it: the history gathered into row order before the step (identity
-    ``src``), the step's new k/v written back."""
+    ``src``), the step's new k/v written back. The step may be an ``int``
+    or a 0-d device tensor; nothing is read back to the host, so a CUDA
+    graph can capture it."""
     def step_fn(step, tgt, w, rot, self_k, self_v, mem_k, mem_v, mem_len,
                 src=None):
-        pk, pv = self_k.clone(), self_v.clone()
-        if step:
-            rows = src[:step].long()
-            t = torch.arange(step, device=rows.device)[:, None]
-            pk[:, :step] = self_k[:, t, rows]
-            pv[:, :step] = self_v[:, t, rows]
+        s_len, n = src.shape
+        at = torch.as_tensor(step, device=src.device).view(1)
+        t = torch.arange(s_len, device=src.device)[:, None]
+        rows = torch.where(t < at, src.long(),
+                           torch.arange(n, device=src.device))
+        pk, pv = self_k[:, t, rows], self_v[:, t, rows]
         out = decode_step(step, tgt, w, rot, pk, pv, mem_k, mem_v, mem_len)
-        self_k[:, step] = pk[:, step]
-        self_v[:, step] = pv[:, step]
+        self_k.index_copy_(1, at, pk.index_select(1, at))
+        self_v.index_copy_(1, at, pv.index_select(1, at))
         return out
     return step_fn
 
@@ -1022,3 +1032,161 @@ def test_train_step_dbnet_on_card_matches_cpu(dev, monkeypatch):
         np.testing.assert_allclose(
             v.cpu().numpy(), w.numpy(), rtol=0,
             atol=1e-4 * w.abs().max().item() + 1e-3 * top, err_msg=k)
+
+
+# -- the decode loops on the device (CUDA graphs) ------------------------------
+
+def _k2_case(model, dev, n=24, s_len=255, m_len=64, seed=5):
+    """K2's inputs at a 255-position cache: random caches and memory, a
+    random ancestry table."""
+    w, _, embd = model.packed(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    memory = torch.randn((n, m_len, 320), generator=g, device=dev) * 0.5
+    lens = torch.randint(1, m_len + 1, (n,), generator=g, device=dev)
+    mask = torch.arange(m_len, device=dev)[None, :] >= lens[:, None]
+    mem_k, mem_v, mem_len = ocr48.init_memory_kv(model, memory, mask, 1,
+                                                 torch.bfloat16)
+    cache = torch.randn((2, 5, s_len, n, 320), generator=g,
+                        device=dev).to(torch.bfloat16)
+    src = torch.randint(0, n, (s_len, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    tgt = embd[torch.randint(3, 300, (n,), generator=g, device=dev)]
+    return w, tgt, ocr48.rot_table(s_len, dev), cache, mem_k, mem_v, \
+        mem_len, src
+
+
+@pytest.mark.parametrize('step', [0, 63, 254])
+def test_k2_device_step_equals_host_step(dev, model, step):
+    """K2 reading its step from device memory gives the bits of the same
+    step passed as a host int: outputs and both caches."""
+    w, tgt, rot, cache, mem_k, mem_v, mem_len, src = _k2_case(model, dev)
+    a_k, a_v = cache[0].clone(), cache[1].clone()
+    b_k, b_v = cache[0].clone(), cache[1].clone()
+    host = dops.decode_step(step, tgt, w, rot, a_k, a_v, mem_k, mem_v,
+                            mem_len, src)
+    at = torch.full((), step, dtype=torch.int64, device=dev)
+    device = dops.decode_step(at, tgt, w, rot, b_k, b_v, mem_k, mem_v,
+                              mem_len, src)
+    torch.cuda.synchronize()
+    for a, b in zip(host[:3], device[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(a_k, b_k) and torch.equal(a_v, b_v)
+    dops.raise_step_error(dev)                    # no error word set
+
+
+def test_k2_out_of_range_device_step_raises_after_the_loop(dev, model):
+    """A device step past the cache launches nothing of the step (outputs
+    and caches untouched) and sets the error word, which the loop reads
+    once after it ends: steps 250.. of a 255-position cache, replayed as a
+    CUDA graph, raise there; the word is then clear."""
+    w, tgt, rot, cache, mem_k, mem_v, mem_len, src = _k2_case(model, dev)
+    sk, sv = cache[0].clone(), cache[1].clone()
+    pos = torch.full((), 250, dtype=torch.int64, device=dev)
+    outs = []
+
+    def body(_):
+        out, _, _, _ = dops.decode_step(pos, tgt, w, rot, sk, sv, mem_k,
+                                        mem_v, mem_len, src)
+        outs.append(out)
+        pos.add_(1)
+    loop = device_loop.DeviceLoop(dev)
+    loop.run(body, 0, 8, 4, lambda: torch.zeros((), dtype=torch.bool,
+                                                device=dev))
+    assert loop.stats.replays == 7 and loop.stats.eager_steps == 1
+    torch.cuda.synchronize()
+    assert torch.equal(sk[:, :250], cache[0][:, :250])
+    with pytest.raises(ValueError, match='outside the cache'):
+        dops.raise_step_error(dev)
+    dops.raise_step_error(dev)
+    bad = torch.full((), 255, dtype=torch.int64, device=dev)
+    out, _, _, _ = dops.decode_step(bad, tgt, w, rot, sk, sv, mem_k, mem_v,
+                                    mem_len, src)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tgt)                  # untouched: tgt's copy
+    with pytest.raises(ValueError, match='step 255'):
+        dops.raise_step_error(dev)
+
+
+@pytest.fixture(scope='module')
+def endless_model(dev):
+    """The seeded 300-entry model with END's bias at -1e4 (no beam ends)
+    and at +8 (every batch ends within a few steps)."""
+    models = {}
+    for bias in (-1e4, 8.0):
+        m = ocr48.build_ocr48(300, dev, ocr48.init_state_dict(300))
+        with torch.no_grad():
+            m.pred.bias[ocr48.END_TOK] = bias
+        models[bias] = m
+    return models
+
+
+@pytest.mark.parametrize('max_len,bias', [(64, -1e4), (255, -1e4),
+                                          (255, 8.0)],
+                         ids=['64', '255', '255-ends'])
+def test_run_beam_graph_equals_eager(dev, endless_model, max_len, bias):
+    """``run_beam`` at N = 24 crops x 5 beams replayed as CUDA graphs
+    against the same fixed-shape body run eagerly: equal bits in the best
+    sequences, log-probs and colour rows; K2 and K3 counted once a step on
+    both (``max_len`` steps when no beam ends); each graph search captures
+    its graph once and replays it every later step, with the same bits
+    every time."""
+    model = endless_model[bias]
+    g = torch.Generator(device=dev).manual_seed(11)
+    memory = torch.randn((24, 96, 320), generator=g, device=dev) * 0.5
+    lens = torch.randint(48, 97, (24,), generator=g, device=dev)
+    mask = torch.arange(96, device=dev)[None, :] >= lens[:, None]
+    counts = []
+    results = []
+    for run, eager in enumerate((False, True, False)):
+        before = dict(cuda_build.LAUNCHES)
+        with device_loop.eager() if eager else contextlib.nullcontext():
+            results.append(ocr48.run_beam(model, memory, mask, 5, max_len,
+                                          2))
+        torch.cuda.synchronize()
+        counts.append({k: cuda_build.LAUNCHES[k] - before[k]
+                       for k in ('decode_step', 'charhead')})
+        stats = device_loop.history[-1]
+        assert stats.graphs != eager
+        steps = stats.stop - stats.start
+        if not eager:
+            assert stats.eager_steps == 1 and stats.replays == steps - 1
+            assert len(stats.capture_ms) == 1
+    assert counts[0] == counts[1] == counts[2]
+    assert counts[0]['decode_step'] == counts[0]['charhead']
+    if bias < 0:
+        assert counts[0]['decode_step'] == max_len
+    else:
+        assert counts[0]['decode_step'] < 16
+    for key in ('best_seq', 'best_logprob', 'best_colors'):
+        assert torch.equal(results[0][key], results[1][key]), key
+        assert torch.equal(results[0][key], results[2][key]), key
+
+
+@pytest.mark.parametrize('prefix', [False, True], ids=['sugoi', 'forced'])
+def test_beam_search_graph_equals_eager(dev, prefix):
+    """Sugoi's ``BeamSearch`` at d=64 (END's logit at -1e4, so 70 steps
+    run: prefix buckets 32, 64 and 71), replayed as CUDA graphs against the
+    same bodies run eagerly: equal tokens, scores and lengths, one graph
+    per bucket."""
+    from manga_image_translator_tpu_torch.translators import ct2_model
+    vocab = ['<unk>', '<s>', '</s>'] + [f'▁w{i}' for i in range(47)]
+    variables = _ct2_variables()
+    variables['decoder/projection/bias'][2] = -1e4
+    card = ct2_model.Ct2Transformer(variables, {'num_heads': 4}, vocab, None,
+                                    device=dev)
+    batch = [['▁w0', '▁w1', '▁w5'], ['▁w2'], ['▁w3', '▁w3', '▁w9', '▁w4']]
+    pre = [['▁w7'], ['▁w9', '▁w2'], []] if prefix else None
+    out = []
+    with torch.inference_mode():
+        for eager in (False, True):
+            search = ct2_model.BeamSearch(card, *card.prepare(batch, pre),
+                                          max_len=70, beam_size=5)
+            with device_loop.eager() if eager else contextlib.nullcontext():
+                best = search.run()
+            stats = device_loop.history[-1]
+            assert stats.graphs != eager and search.t == 70
+            if not eager:
+                assert sorted(stats.capture_ms) == [32, 64, 71]
+            out.append((best, search.toks, search.scores, search.out_len))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -312,6 +312,8 @@ def test_port_never_imports_jax():
         'import manga_image_translator_tpu_torch.ops.image\n'
         'import manga_image_translator_tpu_torch.parallel\n'
         'import manga_image_translator_tpu_torch.parallel.mesh\n'
+        '# the decode loops on the device (CUDA graphs on the card)\n'
+        'import manga_image_translator_tpu_torch.ops.device_loop\n'
         'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")\n'
         '       or m == "manga_image_translator_tpu"\n'
         '       or m.startswith("manga_image_translator_tpu.")]\n'
