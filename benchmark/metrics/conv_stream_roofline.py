@@ -1,0 +1,6 @@
+"""Kernel ``conv_stream``'s share of its roofline over the window, in %."""
+from . import roofline
+
+
+def read(run):
+    return roofline(run, 'conv_stream')

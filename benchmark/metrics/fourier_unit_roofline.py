@@ -1,0 +1,6 @@
+"""Kernel ``fourier_unit``'s share of its roofline over the window, in %."""
+from . import roofline
+
+
+def read(run):
+    return roofline(run, 'fourier_unit')

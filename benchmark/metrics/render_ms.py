@@ -1,0 +1,7 @@
+"""Milliseconds a page in the program's ``render`` stage, over the
+window."""
+from . import stage_ms
+
+
+def read(run):
+    return stage_ms(run, 'render')
