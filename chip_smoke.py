@@ -2252,7 +2252,6 @@ def time_inpainter_forward(key, forwards, rgb):
     with torch.inference_mode():
         if key == 'lama_mpe':
             emb = inp._embeddings(masks)
-            inp.encodings.pop()
             model, dtype = inp._model_for(torch.bfloat16), torch.bfloat16
 
             def fwd():
@@ -2280,6 +2279,7 @@ def run_backend_config(key, chosen, cfg_path, page_dir, name, quads):
     from manga_image_translator_tpu_torch.mode.local import (
         MangaTranslatorLocal, load_config_file)
     from manga_image_translator_tpu_torch.ops import cuda_build
+    from manga_image_translator_tpu_torch.utils import profiling
     dest = os.path.join(OUT, f'backends_{key}')
     args = vars(parser.parse_args(['local', '-i', page_dir, '--dest', dest,
                                    '--config-file', cfg_path,
@@ -2319,8 +2319,10 @@ def run_backend_config(key, chosen, cfg_path, page_dir, name, quads):
 
     torch.cuda.synchronize()
     inp.forwards = []
-    encodings_before = len(getattr(inp, 'encodings', []))
-    with _Failures(mt.logger) as failures, recording_decodes(decodes):
+    # the tracer on for the drive: the known-box pass runs outside a
+    # translate call, in this page
+    with _Failures(mt.logger) as failures, recording_decodes(decodes), \
+            profiling.forced(), profiling.page() as outer:
         cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         extra = asyncio.run(drive())
@@ -2341,11 +2343,13 @@ def run_backend_config(key, chosen, cfg_path, page_dir, name, quads):
               'inpainted_pixels_outside': extra['inpainted_pixels_outside'],
               'logged_failures': failures.records[:5]}
     if isinstance(inp, LamaMPEInpainter):
-        enc = inp.encodings[encodings_before:]
+        enc = [sp for p in profiling.PAGES if p.id >= outer.id
+               for sp in p.spans if sp.name == 'inpaint.mpe_encode']
         result['mpe_blocks'] = inp.model.n_blocks
         result['mpe_encodings'] = len(enc)
         result['mpe_encode_ms_per_crop'] = (
-            sum(ms for _, ms in enc) / max(sum(n for n, _ in enc), 1))
+            sum(sp.ns for sp in enc) / 1e6
+            / max(sum(n for n, _, _ in forwards), 1))
         # one encoding per forward; K4 twice per block, K5 twice per
         # forward: every LaMa forward was a 9-block MPE forward
         require(inp.model.n_blocks == MPE_BLOCKS and inp.mpe is not None

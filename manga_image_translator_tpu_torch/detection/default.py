@@ -22,6 +22,7 @@ from ..ops.bilateral import bilateral_filter, bilateral_filter_batch
 from ..ops.resize import resize_linear
 from ..ops.tiling import extract_squares, needs_tiling, plan_tiles, stitch_maps
 from ..utils.geometry import Quadrilateral
+from ..utils.profiling import span, to_host
 from .common import OfflineDetector
 from .db_postprocess import DBPostprocess
 
@@ -107,30 +108,32 @@ class DefaultDetector(OfflineDetector):
                 image, detect_size)
         pad_h, pad_w = pads
 
-        det = DBPostprocess(text_threshold, box_threshold,
-                            unclip_ratio=unclip_ratio)
-        boxes, scores = det(prob, res_w, res_h)
-        if boxes.shape[0]:
-            keep = boxes.reshape(boxes.shape[0], -1).sum(axis=1) > 0
-            polys = boxes[keep].astype(np.float64)
-            polys *= (1.0 / ratio)
-            polys = polys.astype(np.int64)
-            scores = scores[keep]
-        else:
-            polys, scores = boxes, scores
+        with span('detect.postprocess'):
+            det = DBPostprocess(text_threshold, box_threshold,
+                                unclip_ratio=unclip_ratio)
+            boxes, scores = det(prob, res_w, res_h)
+            if boxes.shape[0]:
+                keep = boxes.reshape(boxes.shape[0], -1).sum(axis=1) > 0
+                polys = boxes[keep].astype(np.float64)
+                polys *= (1.0 / ratio)
+                polys = polys.astype(np.int64)
+                scores = scores[keep]
+            else:
+                polys, scores = boxes, scores
 
-        textlines = [Quadrilateral(pts.astype(int), '', float(score))
-                     for pts, score in zip(polys, scores)]
-        textlines = [q for q in textlines if q.area > 16]
+            textlines = [Quadrilateral(pts.astype(int), '', float(score))
+                         for pts, score in zip(polys, scores)]
+            textlines = [q for q in textlines if q.area > 16]
 
-        # mask comes out at 1/2 the network input; restore to input res
-        mask_resized = cv2.resize(mask, (mask.shape[1] * 2, mask.shape[0] * 2),
-                                  interpolation=cv2.INTER_LINEAR)
-        if pad_h > 0:
-            mask_resized = mask_resized[:-pad_h, :]
-        if pad_w > 0:
-            mask_resized = mask_resized[:, :-pad_w]
-        raw_mask = np.clip(mask_resized * 255, 0, 255).astype(np.uint8)
+            # mask comes out at 1/2 the network input; restore to input res
+            mask_resized = cv2.resize(
+                mask, (mask.shape[1] * 2, mask.shape[0] * 2),
+                interpolation=cv2.INTER_LINEAR)
+            if pad_h > 0:
+                mask_resized = mask_resized[:-pad_h, :]
+            if pad_w > 0:
+                mask_resized = mask_resized[:, :-pad_w]
+            raw_mask = np.clip(mask_resized * 255, 0, 255).astype(np.uint8)
         return textlines, raw_mask, None
 
     # -- batched page path -------------------------------------------------
@@ -205,8 +208,8 @@ class DefaultDetector(OfflineDetector):
         img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
         page = _preprocess_page(img, target_h, target_w, pad_h, pad_w)
         prob, mask = _forward_batch(self.model, page[None])
-        prob = prob[0].float().cpu().numpy()
-        mask = mask[0].float().cpu().numpy()
+        prob = to_host(prob[0].float()).numpy()
+        mask = to_host(mask[0].float()).numpy()
         return (prob, mask, (target_h + pad_h, target_w + pad_w), ratio,
                 (pad_h, pad_w))
 
@@ -221,5 +224,6 @@ class DefaultDetector(OfflineDetector):
         prob_full = stitch_maps(resize_linear(prob[..., None], s, s), plan)
         mask_full = stitch_maps(resize_linear(mask[..., None], s // 2, s // 2),
                                 plan)
-        return (prob_full[..., 0].cpu().numpy(),
-                mask_full[..., 0].cpu().numpy(), (im_h, im_w), 1.0, (0, 0))
+        return (to_host(prob_full[..., 0]).numpy(),
+                to_host(mask_full[..., 0]).numpy(), (im_h, im_w), 1.0,
+                (0, 0))

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.profiling import HOST_SYNCS, count
+
 # Matmuls stay full f32, so the plain versions of the kernels are exact
 # references on the card. cuDNN convolutions (DBNet, the f32 OCR backbone)
 # run in TF32 on the card: the JAX package runs the same f32 convolutions on
@@ -43,4 +45,5 @@ def device_named(name=None) -> torch.device:
 def synchronize(device) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if torch.device(device).type == 'cuda':
+        count(HOST_SYNCS)
         torch.cuda.synchronize(device)

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..config import InpainterConfig
 from ..utils.inference import InfererModule, ModelWrapper
+from ..utils.profiling import to_host
 from .crop_plan import (DEFAULT_BUCKETS, _consolidate_buckets,
                         apply_bucket_mapping, full_page_path_pixels,
                         plan_crops)
@@ -95,7 +96,7 @@ class OfflineInpainter(CommonInpainter, ModelWrapper):
     @staticmethod
     def _batch_forward_collect(handle) -> np.ndarray:
         if hasattr(handle, 'cpu'):          # a torch tensor
-            return handle.cpu().numpy()
+            return to_host(handle).numpy()
         return np.asarray(handle)
 
     @property

@@ -18,7 +18,6 @@ and K5 run through the same wrappers as for lama_large.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import cv2
@@ -28,6 +27,7 @@ import torch
 from ..config import InpainterConfig, InpaintPrecision
 from ..models import lama
 from ..parallel.mesh import sharded_batch
+from ..utils.profiling import span, to_host
 from .common import OfflineInpainter
 
 PAD_SIZE = 8
@@ -126,19 +126,21 @@ class LamaLargeInpainter(OfflineInpainter):
         device, not yet copied to the host."""
         dtype = self._compute_dtype(config)
         self.forwards.append(tuple(image.shape[:3]))
-        embeddings = self._embeddings(mask)
-        img = self._upload(image).float() / 255.0
-        msk = (self._upload(mask).float()[..., None] / 255.0 >= 0.5).float()
-        # the batch splits over the serving mesh when there is one
-        # (parallel.mesh), the embeddings with it
-        extra = tuple(e for e in embeddings if e is not None)
 
         def body(model, img, msk, *emb):
             return _lama_body(model, img, msk, dtype,
                               emb if emb else (None, None))
-        return _to_u8(sharded_batch(
-            body, ('lama.batch', type(self).__name__, dtype, len(extra)),
-            self._model_for(dtype), img, msk, *extra))
+        with span('inpaint.forward'):
+            embeddings = self._embeddings(mask)
+            img = self._upload(image).float() / 255.0
+            msk = (self._upload(mask).float()[..., None] / 255.0
+                   >= 0.5).float()
+            # the batch splits over the serving mesh when there is one
+            # (parallel.mesh), the embeddings with it
+            extra = tuple(e for e in embeddings if e is not None)
+            return _to_u8(sharded_batch(
+                body, ('lama.batch', type(self).__name__, dtype, len(extra)),
+                self._model_for(dtype), img, msk, *extra))
 
     def _embeddings(self, mask: np.ndarray):
         """The generator's extra stem inputs for (N, H, W) uint8 masks:
@@ -167,8 +169,8 @@ class LamaLargeInpainter(OfflineInpainter):
                               interpolation=cv2.INTER_LINEAR)
         self.logger.info(f'Inpainting resolution: {new_w}x{new_h}')
 
-        img_inpainted = self._forward_u8(image[None], mask[None],
-                                         config)[0].cpu().numpy()
+        img_inpainted = to_host(self._forward_u8(image[None], mask[None],
+                                                 config)[0]).numpy()
         if (new_h, new_w) != (height, width):
             img_inpainted = cv2.resize(img_inpainted, (width, height),
                                        interpolation=cv2.INTER_LINEAR)
@@ -207,8 +209,6 @@ class LamaMPEInpainter(LamaLargeInpainter):
     def __init__(self):
         super().__init__()
         self.mpe: Optional[lama.MPE] = None
-        # (crops, host ms) of every mask encoding, in order
-        self.encodings: List[Tuple[int, float]] = []
 
     async def _load(self, device: str):
         n_blocks = self._N_BLOCKS
@@ -231,11 +231,10 @@ class LamaMPEInpainter(LamaLargeInpainter):
     def _embeddings(self, mask: np.ndarray):
         """The BFS encoding of each (H, W) uint8 mask (binarised at 0.5, as
         the generator's mask) on the host, embedded on the device."""
-        t0 = time.perf_counter()
-        mask_bin = ((mask.astype(np.float32) / 255.0) >= 0.5).astype(
-            np.float32)
-        encs = [lama.masked_position_encoding(m) for m in mask_bin]
-        self.encodings.append((len(encs), (time.perf_counter() - t0) * 1e3))
+        with span('inpaint.mpe_encode'):
+            mask_bin = ((mask.astype(np.float32) / 255.0) >= 0.5).astype(
+                np.float32)
+            encs = [lama.masked_position_encoding(m) for m in mask_bin]
         rel_pos = self._upload(np.stack([e[0] for e in encs]))
         direct = self._upload(np.stack([e[1] for e in encs]))
         return self.mpe(rel_pos, direct)

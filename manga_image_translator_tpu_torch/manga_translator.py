@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import asyncio
 import functools
+import logging
 import os
 import re
 import time
@@ -38,6 +39,7 @@ from .config import (Colorizer, Config, Ocr as OcrEnum, Renderer,
                      Translator)
 from .utils.generic import Context, dump_image, is_valuable_text, load_image
 from .utils.log import get_logger
+from .utils.profiling import span
 from .utils.sort import sort_regions, visualize_textblocks
 from .utils.textblock import TextBlock
 
@@ -220,17 +222,18 @@ class MangaTranslator:
                 f'-{config.detector.detection_size}'
                 f'-{config.translator.target_lang}'
                 f'-{config.translator.translator.value}')
-        from .utils.profiling import StageTimer, device_trace
+        from .utils.profiling import StageTimer, page
         from .device import synchronize
         # a partial, not a closure: the Context pickles (the shared
         # executor returns it)
         ctx.timer = StageTimer(sync=functools.partial(synchronize,
                                                       self.device))
-        with device_trace('translate'):
+        with page(export='translate'):
             ctx = await self._translate(config, ctx)
         ctx.stage_durations = ctx.timer.report()
         if ctx.stage_durations:
-            logger.info(f'stage times: {ctx.timer.summary()}')
+            if logger.isEnabledFor(logging.INFO):
+                logger.info(f'stage times: {ctx.timer.summary()}')
             for name, dt in ctx.stage_durations.items():
                 await self._report_progress(
                     f'stage-time:{name}:{dt * 1000:.1f}')
@@ -530,10 +533,11 @@ class MangaTranslator:
                 region.adjust_bg_color = False
             new_text_regions.append(region)
 
-        return sort_regions(new_text_regions,
-                            right_to_left=config.render.rtl,
-                            img=ctx.img_rgb,
-                            force_simple_sort=config.force_simple_sort)
+        with span('merge.sort'):
+            return sort_regions(new_text_regions,
+                                right_to_left=config.render.rtl,
+                                img=ctx.img_rgb,
+                                force_simple_sort=config.force_simple_sort)
 
     def _build_prev_context(self) -> str:
         """Last ``context_size`` non-empty pages as numbered context lines."""

@@ -23,6 +23,7 @@ from ..ops.bilateral import bilateral_filter
 from ..ops.crf import crf_refine_batch
 from ..utils.bubble import is_ignore
 from ..utils.geometry import Quadrilateral
+from ..utils.profiling import span, to_host
 from ..utils.textblock import TextBlock
 
 
@@ -116,7 +117,7 @@ def refine_masks_batched(jobs, device='cpu') -> List[np.ndarray]:
 
     results = [np.zeros(raw.shape[:2], np.uint8) for _, raw in jobs]
     for idxs, out in pending:
-        out_np = out.cpu().numpy()
+        out_np = to_host(out).numpy()
         for row, t in enumerate(idxs):
             idx, y, x = tiles[t][:3]
             h, w = padded[t][2], padded[t][3]
@@ -132,10 +133,13 @@ def complete_mask_fill(mask_shape, text_lines) -> np.ndarray:
     return final_mask
 
 
-def complete_mask(img: np.ndarray, mask: np.ndarray,
-                  textlines: List[Quadrilateral], keep_threshold=1e-2,
-                  dilation_offset=0, kernel_size=3,
-                  device='cpu') -> Optional[np.ndarray]:
+def assign_components(mask: np.ndarray, textlines: List[Quadrilateral],
+                      keep_threshold: float):
+    """Each connected component of ``mask`` (the line boxes' outlines
+    erased) given to its textline: the one it overlaps most, or the
+    nearest within half a glyph. Returns each textline's component mask
+    and its (x, y, w, h) rectangle, or None when no component was given
+    to any line."""
     bboxes = [q.aabb.xywh for q in textlines]
     poly_pts = [q.pts.astype(np.float64) for q in textlines]
     poly_areas = [cv2.contourArea(p.astype(np.float32)) for p in poly_pts]
@@ -191,52 +195,65 @@ def complete_mask(img: np.ndarray, mask: np.ndarray,
 
     if not valid:
         return None
-
     textline_rects[:, 2] -= textline_rects[:, 0]
     textline_rects[:, 3] -= textline_rects[:, 1]
+    return textline_ccs, textline_rects
+
+
+def complete_mask(img: np.ndarray, mask: np.ndarray,
+                  textlines: List[Quadrilateral], keep_threshold=1e-2,
+                  dilation_offset=0, kernel_size=3,
+                  device='cpu') -> Optional[np.ndarray]:
+    with span('mask.assign'):
+        assigned = assign_components(mask, textlines, keep_threshold)
+    if assigned is None:
+        return None
+    textline_ccs, textline_rects = assigned
 
     final_mask = np.zeros_like(mask)
-    img = bilateral_filter(
-        torch.from_numpy(np.ascontiguousarray(img)).to(device), 17, 80.0,
-        80.0).cpu().numpy()
+    with span('mask.bilateral'):
+        img = to_host(bilateral_filter(
+            torch.from_numpy(np.ascontiguousarray(img)).to(device), 17,
+            80.0, 80.0)).numpy()
     # Phase 1 (host): collect every textline's CRF crop. Phase 2 (device):
     # refine them all in a few batched calls. Phase 3 (host): dilate and
     # composite.
-    jobs = []
-    meta = []
-    for i, cc in enumerate(textline_ccs):
-        x1, y1, w1, h1 = [int(v) for v in textline_rects[i]]
-        if w1 <= 0 or h1 <= 0:
-            continue
-        text_size = min(w1, h1, textlines[i].font_size)
-        x1, y1, w1, h1 = extend_rect(x1, y1, w1, h1, img.shape[1],
-                                     img.shape[0], int(text_size * 0.1))
-        dilate_size = max((int((text_size + dilation_offset) * 0.3) // 2)
-                          * 2 + 1, 3)
-        cc_region = np.ascontiguousarray(cc[y1:y1 + h1, x1:x1 + w1])
-        if cc_region.size == 0:
-            continue
-        img_region = np.ascontiguousarray(img[y1:y1 + h1, x1:x1 + w1])
-        jobs.append((img_region, cc_region))
-        meta.append((i, x1, y1, w1, h1, dilate_size))
+    with span('mask.crf'):
+        jobs = []
+        meta = []
+        for i, cc in enumerate(textline_ccs):
+            x1, y1, w1, h1 = [int(v) for v in textline_rects[i]]
+            if w1 <= 0 or h1 <= 0:
+                continue
+            text_size = min(w1, h1, textlines[i].font_size)
+            x1, y1, w1, h1 = extend_rect(x1, y1, w1, h1, img.shape[1],
+                                         img.shape[0], int(text_size * 0.1))
+            dilate_size = max((int((text_size + dilation_offset) * 0.3) // 2)
+                              * 2 + 1, 3)
+            cc_region = np.ascontiguousarray(cc[y1:y1 + h1, x1:x1 + w1])
+            if cc_region.size == 0:
+                continue
+            img_region = np.ascontiguousarray(img[y1:y1 + h1, x1:x1 + w1])
+            jobs.append((img_region, cc_region))
+            meta.append((i, x1, y1, w1, h1, dilate_size))
 
-    refined = refine_masks_batched(jobs, device)
-    for (i, x1, y1, w1, h1, dilate_size), cc_region in zip(meta, refined):
-        cc = textline_ccs[i]
+        refined = refine_masks_batched(jobs, device)
+    with span('mask.dilate'):
+        for (i, x1, y1, w1, h1, dilate_size), cc_region in zip(meta, refined):
+            cc = textline_ccs[i]
+            kern = cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
+                                             (dilate_size, dilate_size))
+            cc[y1:y1 + h1, x1:x1 + w1] = cc_region
+            x2, y2, w2, h2 = extend_rect(x1, y1, w1, h1, img.shape[1],
+                                         img.shape[0], -(-dilate_size // 2))
+            cc[y2:y2 + h2, x2:x2 + w2] = cv2.dilate(cc[y2:y2 + h2, x2:x2 + w2],
+                                                    kern)
+            final_mask[y2:y2 + h2, x2:x2 + w2] = cv2.bitwise_or(
+                final_mask[y2:y2 + h2, x2:x2 + w2], cc[y2:y2 + h2, x2:x2 + w2])
+
         kern = cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
-                                         (dilate_size, dilate_size))
-        cc[y1:y1 + h1, x1:x1 + w1] = cc_region
-        x2, y2, w2, h2 = extend_rect(x1, y1, w1, h1, img.shape[1],
-                                     img.shape[0], -(-dilate_size // 2))
-        cc[y2:y2 + h2, x2:x2 + w2] = cv2.dilate(cc[y2:y2 + h2, x2:x2 + w2],
-                                                kern)
-        final_mask[y2:y2 + h2, x2:x2 + w2] = cv2.bitwise_or(
-            final_mask[y2:y2 + h2, x2:x2 + w2], cc[y2:y2 + h2, x2:x2 + w2])
-
-    kern = cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
-                                     (kernel_size, kernel_size))
-    return cv2.dilate(final_mask, kern)
-
+                                         (kernel_size, kernel_size))
+        return cv2.dilate(final_mask, kern)
 
 async def dispatch(text_regions: List[TextBlock], raw_image: np.ndarray,
                    raw_mask: np.ndarray, method: str = 'fit_text',

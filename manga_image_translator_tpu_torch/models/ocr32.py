@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.charhead import stable_topk
+from ..utils.profiling import count, count_sync, span
 from .ocr48_ctc import (Backbone, PackedAttention, ResNetFeatures, _Layers,
                         _init_backbone, _init_helpers, attend, attention,
                         merge_heads, pe_table, split_heads)
@@ -212,9 +213,13 @@ def run_beam(model: OCR32, memory: torch.Tensor, memory_mask: torch.Tensor,
         best_row_src.copy_(torch.where(take, row_src[flat], best_row_src))
         done.logical_or_(newly_done)
 
+    steps = max_len
     for step in range(1, max_len):
-        if step % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if step % _DONE_CHECK_EVERY == 0:
+            count_sync(dev)
+            if bool(done.all()):
+                steps = step
+                break
         last_tok = out_idx[:, step]
         top_v, top_i = topk(dec.step(last_tok, step))
         finished = (last_tok == END_TOK)[:, None]
@@ -235,6 +240,7 @@ def run_beam(model: OCR32, memory: torch.Tensor, memory_mask: torch.Tensor,
         log_probs = sel_v.reshape(-1)
         fin = (tok == END_TOK).view(n, k)
         latch((fin.sum(dim=1) >= max_finished_hypos) & ~done)
+    count('ocr.line_steps', n * steps)
     latch(~done)
     colors = dec.out[best_row_src, torch.arange(max_len, device=dev)[None, :]]
     return {'best_seq': best_seq, 'best_logprob': best_logprob,
@@ -248,7 +254,8 @@ def beam_decode(model: OCR32, images: torch.Tensor,
     """Full 32px OCR inference on (N, 32, W, 3) strips in [-1, 1]:
     sequences (N, max_len), probabilities (N,) and per-step colours (N,
     max_len, 6) clipped to [0, 1]."""
-    memory, memory_mask = compute_memory(model, images, valid_widths)
+    with span('ocr.encode'):
+        memory, memory_mask = compute_memory(model, images, valid_widths)
     state = run_beam(model, memory, memory_mask, beams_k, max_len,
                      max_finished_hypos)
     colors = torch.clamp(color_predictions(model, state['best_colors']), 0, 1)

@@ -32,6 +32,7 @@ from ..ops import charhead as charhead_ops
 from ..ops import decode_step as decode_ops
 from ..ops.charhead import stable_topk
 from ..ops.device_loop import DeviceLoop
+from ..utils.profiling import count
 
 EMBD_DIM = 320
 N_HEADS = 4
@@ -544,8 +545,9 @@ class BeamLoop:
         self.row_src.copy_(self.ar_nk[:, None].expand(nk, max_len))
         self.best_row_src.zero_()
 
-        self.loop.run(self.body, 1, max_len, _DONE_CHECK_EVERY,
-                      self.done.all)
+        steps = self.loop.run(self.body, 1, max_len, _DONE_CHECK_EVERY,
+                              self.done.all)
+        count('ocr.line_steps', self.n * steps)
         self.latch(~self.done)
         if self.step.device.type == 'cuda':
             decode_ops.raise_step_error(self.step.device)

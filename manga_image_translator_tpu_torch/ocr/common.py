@@ -15,6 +15,7 @@ from ..config import OcrConfig
 from ..ops import warp
 from ..utils.geometry import Quadrilateral, can_merge_textline
 from ..utils.inference import InfererModule, ModelWrapper
+from ..utils.profiling import span
 from ..utils.textblock import TextBlock
 
 
@@ -63,18 +64,20 @@ class CommonOCR(InfererModule):
         unless more than half of the quads are rotated: then the host). The
         device paths return ``DeviceCrops``, which hold crop plans; the
         page moves to ``self.device`` once."""
-        quads = list(self._generate_text_direction(textlines))
-        is_quads = bool(quads and isinstance(quads[0][0], Quadrilateral))
-        crops = None
-        if is_quads and mode != 'host':
-            crops = DeviceCrops.plan(image, quads, height, mode, self.device)
-        if crops is None:
-            crops = HostCrops([q.get_transformed_region(image, d, height)
-                               for q, d in quads], self.device)
-        order = list(range(len(quads)))
-        if is_quads:
-            order.sort(key=crops.width)
-        return quads, crops, order, is_quads
+        with span('ocr.plan'):
+            quads = list(self._generate_text_direction(textlines))
+            is_quads = bool(quads and isinstance(quads[0][0], Quadrilateral))
+            crops = None
+            if is_quads and mode != 'host':
+                crops = DeviceCrops.plan(image, quads, height, mode,
+                                         self.device)
+            if crops is None:
+                crops = HostCrops([q.get_transformed_region(image, d, height)
+                                   for q, d in quads], self.device)
+            order = list(range(len(quads)))
+            if is_quads:
+                order.sort(key=crops.width)
+            return quads, crops, order, is_quads
 
     async def recognize(self, image: np.ndarray,
                         textlines: List[Quadrilateral], config: OcrConfig,
@@ -225,6 +228,15 @@ def set_line_result(region, txt: str, prob: float, colors) -> None:
         region.text.append(txt)
         region.update_font_colors(np.array([fr, fg, fb]),
                                   np.array([br, bg, bb]))
+
+
+def tokens_read(sequences: np.ndarray, end: int) -> int:
+    """The tokens of the best sequences (N, L) up to and including each
+    one's first ``end``; all L where there is none (the loop ran L
+    steps)."""
+    ended = sequences == end
+    return int(np.where(ended.any(axis=1), ended.argmax(axis=1) + 1,
+                        sequences.shape[1]).sum())
 
 
 def chunks(lst, n):

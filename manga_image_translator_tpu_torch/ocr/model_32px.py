@@ -18,8 +18,9 @@ import torch
 from ..config import OcrConfig
 from ..models import ocr32
 from ..utils.geometry import Quadrilateral
+from ..utils.profiling import count, span, to_host, tracing
 from .common import (OfflineOCR, chunks, opt_in_crop_mode,
-                     set_line_result)
+                     set_line_result, tokens_read)
 from .model_48px import MAX_SEQ_LEN, _placeholder_dictionary, bucket_width
 
 TEXT_HEIGHT = 32
@@ -74,47 +75,52 @@ class Model32pxOCR(OfflineOCR):
         out_regions = []
         for indices in chunks(perm, MAX_CHUNK):
             bw = bucket_width(max(crops.width(i) for i in indices))
-            images, valid_widths, _ = crops.chunk(indices, MAX_CHUNK, bw)
-            ret = ocr32.beam_decode(
-                self.model, images,
-                torch.from_numpy(valid_widths).to(self.device), beams_k=5,
-                max_len=MAX_SEQ_LEN)
-            sequences = ret['sequences'].cpu().numpy()
-            probs = ret['probs'].cpu().numpy()
-            colors = ret['colors'].float().cpu().numpy()
-
-            for i in range(len(indices)):
-                prob = float(probs[i])
-                if prob < threshold:
-                    continue
-                seq = []
-                n_chars = 0
-                for chid in sequences[i]:
-                    chid = int(chid)
-                    if chid >= len(self.dictionary):
+            with span('ocr.crop'):
+                images, valid_widths, _ = crops.chunk(indices, MAX_CHUNK, bw)
+                widths = torch.from_numpy(valid_widths).to(self.device)
+            with span('ocr.beam'):
+                ret = ocr32.beam_decode(self.model, images, widths,
+                                        beams_k=5, max_len=MAX_SEQ_LEN)
+                sequences = to_host(ret['sequences']).numpy()
+                probs = to_host(ret['probs']).numpy()
+                colors = to_host(ret['colors'].float()).numpy()
+            if tracing():
+                count('ocr.tokens',
+                      tokens_read(sequences[:len(indices)], ocr32.END_TOK))
+            with span('ocr.text'):
+                for i in range(len(indices)):
+                    prob = float(probs[i])
+                    if prob < threshold:
                         continue
-                    ch = self.dictionary[chid]
-                    if ch == '<S>':
+                    seq = []
+                    n_chars = 0
+                    for chid in sequences[i]:
+                        chid = int(chid)
+                        if chid >= len(self.dictionary):
+                            continue
+                        ch = self.dictionary[chid]
+                        if ch == '<S>':
+                            continue
+                        if ch == '</S>':
+                            break
+                        if ch == '<SP>':
+                            ch = ' '
+                        seq.append(ch)
+                        n_chars += 1
+                    txt = ''.join(seq)
+                    if not txt:
                         continue
-                    if ch == '</S>':
-                        break
-                    if ch == '<SP>':
-                        ch = ' '
-                    seq.append(ch)
-                    n_chars += 1
-                txt = ''.join(seq)
-                if not txt:
-                    continue
-                # colors: mean over the sequence, clipped (reference :104-109)
-                cmean = colors[i, :max(n_chars, 1)].mean(axis=0)
-                fr, fg, fb, br, bg, bb = [int(np.clip(v, 0, 1) * 255)
-                                          for v in cmean]
-                self.logger.info(f'prob: {prob} {txt} fg: ({fr}, {fg}, {fb}) '
-                                 f'bg: ({br}, {bg}, {bb})')
-                cur_region = quadrilaterals[indices[i]][0]
-                set_line_result(cur_region, txt, prob,
-                                (fr, fg, fb, br, bg, bb))
-                out_regions.append(cur_region)
+                    # colors: mean over the sequence, clipped (reference
+                    # :104-109)
+                    cmean = colors[i, :max(n_chars, 1)].mean(axis=0)
+                    fr, fg, fb, br, bg, bb = [int(np.clip(v, 0, 1) * 255)
+                                              for v in cmean]
+                    self.logger.info('prob: %s %s fg: %s bg: %s', prob, txt,
+                                     (fr, fg, fb), (br, bg, bb))
+                    cur_region = quadrilaterals[indices[i]][0]
+                    set_line_result(cur_region, txt, prob,
+                                    (fr, fg, fb, br, bg, bb))
+                    out_regions.append(cur_region)
 
         if is_quadrilaterals:
             return out_regions

@@ -24,8 +24,9 @@ import torch
 from ..config import OcrConfig
 from ..models import ocr48
 from ..utils.geometry import Quadrilateral
+from ..utils.profiling import count, span, to_host, tracing
 from .common import (AvgMeter, HostCrops, OfflineOCR, chunks,
-                     set_line_result)
+                     set_line_result, tokens_read)
 
 TEXT_HEIGHT = 48
 MAX_CHUNK = 16
@@ -116,8 +117,9 @@ class Model48pxOCR(OfflineOCR):
         self.model = None
 
     def _compute_memory(self, images, valid_widths):
-        return ocr48.sharded_compute_memory(self.model, images, valid_widths,
-                                            bf16_backbone_enabled())
+        with span('ocr.encode'):
+            return ocr48.sharded_compute_memory(
+                self.model, images, valid_widths, bf16_backbone_enabled())
 
     def _decode(self, memory, memory_mask, max_len):
         return ocr48.sharded_beam_decode_from_memory(
@@ -195,15 +197,17 @@ class Model48pxOCR(OfflineOCR):
         ix = 0
         for indices in chunks(perm, chunk_size):
             bw = bucket_width(max(crops.width(i) for i in indices))
-            images, valid_widths, _ = crops.chunk(indices, chunk_size, bw)
+            with span('ocr.crop'):
+                images, valid_widths, _ = crops.chunk(indices, chunk_size,
+                                                      bw)
+                widths = torch.from_numpy(valid_widths).to(self.device)
             if dump_dirs is not None:
                 batch = torch.round((images + 1.0) * 127.5).to(
                     torch.uint8).cpu().numpy()
                 for i, idx in enumerate(indices):
                     self._dump_crop(batch[i], dump_dirs[idx], ix + i)
             ix += len(indices)
-            built.append((indices, images,
-                          torch.from_numpy(valid_widths).to(self.device)))
+            built.append((indices, images, widths))
 
         # consecutive same-shape chunks share one backbone + encoder forward
         results = []
@@ -227,18 +231,22 @@ class Model48pxOCR(OfflineOCR):
 
         found = []
         for indices, ret in results:
-            for i, idx in enumerate(indices):
-                prob = float(ret['probs'][i])
-                if prob < threshold:
-                    continue
-                txt, colors = self._decode_tokens(
-                    ret['sequences'][i], ret['fg'][i], ret['bg'][i],
-                    ret['fg_ind'][i], ret['bg_ind'][i])
-                if txt is None:
-                    continue
-                self.logger.info(
-                    f'prob: {prob} {txt} fg: {colors[:3]} bg: {colors[3:]}')
-                found.append((idx, prob, txt, colors))
+            if tracing():
+                count('ocr.tokens', tokens_read(
+                    ret['sequences'][:len(indices)], ocr48.END_TOK))
+            with span('ocr.text'):
+                for i, idx in enumerate(indices):
+                    prob = float(ret['probs'][i])
+                    if prob < threshold:
+                        continue
+                    txt, colors = self._decode_tokens(
+                        ret['sequences'][i], ret['fg'][i], ret['bg'][i],
+                        ret['fg_ind'][i], ret['bg_ind'][i])
+                    if txt is None:
+                        continue
+                    self.logger.info('prob: %s %s fg: %s bg: %s', prob, txt,
+                                     colors[:3], colors[3:])
+                    found.append((idx, prob, txt, colors))
         return found
 
     def _two_tier_decode(self, memory):
@@ -247,41 +255,42 @@ class Model48pxOCR(OfflineOCR):
         batch when they fit). Identical to one MAX_SEQ_LEN pass for every
         sequence that terminates within the short budget. Returns numpy
         arrays."""
-        fast = min(FAST_SEQ_LEN, MAX_SEQ_LEN)
-        ret = {k: v.cpu().numpy()
-               for k, v in self._decode(memory[0], memory[1], fast).items()}
-        if fast >= MAX_SEQ_LEN:
-            return ret
-        unfinished = ~(ret['sequences'] == ocr48.END_TOK).any(axis=1)
-        if not unfinished.any():
-            return ret
-        idx = np.where(unfinished)[0]
-        self.logger.info(f'{len(idx)} lines exceeded {fast} tokens — '
-                         f're-decoding at {MAX_SEQ_LEN}')
-        n_rows = memory[0].shape[0]
-        if len(idx) <= MAX_CHUNK < n_rows:
-            # padding rows duplicate a live row: they finish with it
-            take = np.full((MAX_CHUNK,), int(idx[0]), np.int64)
-            take[:len(idx)] = idx
-            take_t = torch.from_numpy(take).to(memory[0].device)
-            full = self._decode(memory[0][take_t], memory[1][take_t],
-                                MAX_SEQ_LEN)
-            src_rows = np.arange(len(idx))
-        else:
-            full = self._decode(memory[0], memory[1], MAX_SEQ_LEN)
-            src_rows = idx
-        out = {}
-        for key, a in ret.items():
-            a = np.array(a)
-            b = full[key].cpu().numpy()
-            if a.ndim >= 2 and a.shape[1] != b.shape[1]:
-                pad = [(0, 0)] * a.ndim
-                pad[1] = (0, b.shape[1] - a.shape[1])
-                fill = ocr48.END_TOK if key == 'sequences' else 0
-                a = np.pad(a, pad, constant_values=fill)
-            a[idx] = b[src_rows]
-            out[key] = a
-        return out
+        with span('ocr.beam'):
+            fast = min(FAST_SEQ_LEN, MAX_SEQ_LEN)
+            first = self._decode(memory[0], memory[1], fast)
+            ret = {k: to_host(v).numpy() for k, v in first.items()}
+            if fast >= MAX_SEQ_LEN:
+                return ret
+            unfinished = ~(ret['sequences'] == ocr48.END_TOK).any(axis=1)
+            if not unfinished.any():
+                return ret
+            idx = np.where(unfinished)[0]
+            self.logger.info(f'{len(idx)} lines exceeded {fast} tokens — '
+                             f're-decoding at {MAX_SEQ_LEN}')
+            n_rows = memory[0].shape[0]
+            if len(idx) <= MAX_CHUNK < n_rows:
+                # padding rows duplicate a live row: they finish with it
+                take = np.full((MAX_CHUNK,), int(idx[0]), np.int64)
+                take[:len(idx)] = idx
+                take_t = torch.from_numpy(take).to(memory[0].device)
+                full = self._decode(memory[0][take_t], memory[1][take_t],
+                                    MAX_SEQ_LEN)
+                src_rows = np.arange(len(idx))
+            else:
+                full = self._decode(memory[0], memory[1], MAX_SEQ_LEN)
+                src_rows = idx
+            out = {}
+            for key, a in ret.items():
+                a = np.array(a)
+                b = to_host(full[key]).numpy()
+                if a.ndim >= 2 and a.shape[1] != b.shape[1]:
+                    pad = [(0, 0)] * a.ndim
+                    pad[1] = (0, b.shape[1] - a.shape[1])
+                    fill = ocr48.END_TOK if key == 'sequences' else 0
+                    a = np.pad(a, pad, constant_values=fill)
+                a[idx] = b[src_rows]
+                out[key] = a
+            return out
 
     def _dump_crop(self, crop: np.ndarray, direction: str, index: int):
         """Debug crop dump (reference model_48px.py:90-113; directory

@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import HOST_SYNCS, count
 from . import cuda_build
 
 KERNEL = 'decode_step'
@@ -266,6 +267,7 @@ def raise_step_error(device) -> None:
     word = _error_words.get(str(device))
     if word is None:
         return
+    count(HOST_SYNCS)
     flag, step = word.tolist()
     if flag:
         word.zero_()

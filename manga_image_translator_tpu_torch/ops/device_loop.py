@@ -41,6 +41,10 @@ Kernel wrappers called during a capture count their launches in the
 capturing thread's own tally (``cuda_build.capture_tally``), not in
 ``cuda_build.LAUNCHES``; the loop adds that tally to ``LAUNCHES`` at every
 replay, so launches other threads make meanwhile are counted once.
+
+For the tracer (``utils.profiling``), each capture is a ``graph.capture``
+span, timed as ``LoopStats.capture_ms`` is, and each flag read and the
+side stream's synchronise count in ``host_syncs``.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
+from ..utils.profiling import HOST_SYNCS, add_span, count, count_sync
 from . import cuda_build
 
 _local = threading.local()
@@ -133,6 +138,7 @@ class DeviceLoop:
         finally:
             cur.wait_stream(self._side)
             # the graphs may be freed with the loop once this returns
+            count(HOST_SYNCS)
             self._side.synchronize()
 
     def _blocks(self, body, start, stop, block, finished, variant) -> int:
@@ -145,6 +151,7 @@ class DeviceLoop:
             step = end
             if step < stop:
                 self.stats.flag_reads += 1
+                count_sync(self.device)
                 if bool(finished()):
                     break
         self.stats.stop = step
@@ -169,7 +176,7 @@ class DeviceLoop:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         with cuda_build.capture_tally() as launches:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode='thread_local')
@@ -177,5 +184,7 @@ class DeviceLoop:
                 body(v)
             finally:
                 graph.capture_end()
-        self.stats.capture_ms[v] = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter_ns()
+        self.stats.capture_ms[v] = (t1 - t0) / 1e6
+        add_span('graph.capture', t0, t1)
         return graph, dict(launches)

@@ -27,6 +27,7 @@ devices, and every call site then runs its single-device path.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -210,8 +211,11 @@ def run_on_devices(jobs: list, devices: List[torch.device]) -> list:
     if len(groups) == 1:
         run_group(next(iter(groups.values())))
         return results
+    # each thread in a copy of the caller's context: its spans stay in the
+    # caller's page (utils.profiling)
     with ThreadPoolExecutor(max_workers=len(groups)) as pool:
-        for fut in [pool.submit(run_group, idxs)
+        for fut in [pool.submit(contextvars.copy_context().run, run_group,
+                                idxs)
                     for idxs in groups.values()]:
             fut.result()
     return results

@@ -18,6 +18,7 @@ import numpy as np
 
 from ..utils.generic import color_difference
 from ..utils.log import get_logger
+from ..utils.profiling import span
 from ..utils.textblock import TextBlock, rotate_polygons
 from . import text_render
 from .text_render import count_text_length
@@ -228,10 +229,12 @@ async def dispatch(img: np.ndarray, text_regions: List[TextBlock],
         img, text_regions, font_size_fixed, font_size_offset,
         font_size_minimum)
     for region, dst_points in zip(text_regions, dst_points_list):
-        if render_mask is not None:
-            cv2.fillConvexPoly(render_mask, dst_points.astype(np.int32), 1)
-        img = render(img, region, dst_points, hyphenate, line_spacing,
-                     disable_font_border)
+        with span('render.region'):
+            if render_mask is not None:
+                cv2.fillConvexPoly(render_mask, dst_points.astype(np.int32),
+                                   1)
+            img = render(img, region, dst_points, hyphenate, line_spacing,
+                         disable_font_border)
     return img
 
 

@@ -19,6 +19,7 @@ import cv2
 import numpy as np
 from PIL import Image, ImageDraw
 
+from ..utils.profiling import span
 from ..utils.textblock import TextBlock
 from . import text_render
 
@@ -218,62 +219,72 @@ def render_textblock_list_eng(img: np.ndarray, text_regions: List[TextBlock],
     for region in text_regions:
         if not region.translation:
             continue
-        fg, bg = region.get_font_colors()
-        if disable_font_border:
-            bg = None
-        x1, y1, x2, y2 = [int(v) for v in region.xyxy]
-        bw = max(x2 - x1, 8)
-        bh = max(y2 - y1, 8)
-        text = region.get_translation_for_rendering()
-
-        font_size = max(int(region.font_size), 8)
-        min_size = max(int(font_size * downscale_constraint), 6)
-
-        ballon, (ex1, ey1, _ex2, _ey2) = extract_ballon_region(
-            src, region.xyxy)
-        words = [w for w in text.replace('\n', ' ').split(' ') if w]
-
-        placed = False
-        if words and (ballon == 0).any():
-            # real balloon shape recovered: shrink the font until the
-            # center-aligned shape fit succeeds
-            for fs in range(font_size, min_size - 1, -2):
-                font = text_render.get_cached_font(fs)
-                widths = [font.getlength(w) for w in words]
-                line_h = int(fs * (1.15 + line_spacing))
-                lines = layout_lines_in_balloon(
-                    ballon, words, widths, font.getlength(' '), line_h)
-                if lines is not None:
-                    _render_lines(img, lines, (ex1, ey1), fs, fg, bg)
-                    placed = True
-                    break
-        if placed:
-            continue
-
-        # fallback: bbox-centered wrapped box (no balloon shape found or
-        # the text does not fit at the minimum size)
-        fs = font_size
-        for cand in range(font_size, min_size - 1, -2):
-            font = text_render.get_cached_font(cand)
-            n_lines = len(text_render._break_text(font, text, bw * size_tol))
-            if n_lines * int(cand * (1.15 + line_spacing)) <= bh * size_tol:
-                fs = cand
-                break
-        else:
-            fs = min_size
-        box = text_render.put_text_horizontal(
-            fs, text, bw, bh, 'center', False,
-            fg, bg, region.target_lang, True, line_spacing or None)
-        gh, gw = box.shape[:2]
-        cx, cy = (x1 + x2) // 2, (y1 + y2) // 2
-        ox1 = max(cx - gw // 2, 0)
-        oy1 = max(cy - gh // 2, 0)
-        ox2 = min(ox1 + gw, img.shape[1])
-        oy2 = min(oy1 + gh, img.shape[0])
-        sub = box[:oy2 - oy1, :ox2 - ox1]
-        alpha = sub[:, :, 3:4].astype(np.float32) / 255.0
-        img[oy1:oy2, ox1:ox2] = np.clip(
-            img[oy1:oy2, ox1:ox2].astype(np.float32) * (1 - alpha)
-            + sub[:, :, :3].astype(np.float32) * alpha, 0, 255
-        ).astype(np.uint8)
+        with span('render.region'):
+            _render_region_eng(img, src, region, line_spacing, size_tol,
+                               downscale_constraint, disable_font_border)
     return img
+
+
+def _render_region_eng(img: np.ndarray, src: np.ndarray, region: TextBlock,
+                       line_spacing: float, size_tol: float,
+                       downscale_constraint: float,
+                       disable_font_border: bool) -> None:
+    """One region of ``render_textblock_list_eng``, drawn into ``img``."""
+    fg, bg = region.get_font_colors()
+    if disable_font_border:
+        bg = None
+    x1, y1, x2, y2 = [int(v) for v in region.xyxy]
+    bw = max(x2 - x1, 8)
+    bh = max(y2 - y1, 8)
+    text = region.get_translation_for_rendering()
+
+    font_size = max(int(region.font_size), 8)
+    min_size = max(int(font_size * downscale_constraint), 6)
+
+    ballon, (ex1, ey1, _ex2, _ey2) = extract_ballon_region(
+        src, region.xyxy)
+    words = [w for w in text.replace('\n', ' ').split(' ') if w]
+
+    placed = False
+    if words and (ballon == 0).any():
+        # real balloon shape recovered: shrink the font until the
+        # center-aligned shape fit succeeds
+        for fs in range(font_size, min_size - 1, -2):
+            font = text_render.get_cached_font(fs)
+            widths = [font.getlength(w) for w in words]
+            line_h = int(fs * (1.15 + line_spacing))
+            lines = layout_lines_in_balloon(
+                ballon, words, widths, font.getlength(' '), line_h)
+            if lines is not None:
+                _render_lines(img, lines, (ex1, ey1), fs, fg, bg)
+                placed = True
+                break
+    if placed:
+        return
+
+    # fallback: bbox-centered wrapped box (no balloon shape found or
+    # the text does not fit at the minimum size)
+    fs = font_size
+    for cand in range(font_size, min_size - 1, -2):
+        font = text_render.get_cached_font(cand)
+        n_lines = len(text_render._break_text(font, text, bw * size_tol))
+        if n_lines * int(cand * (1.15 + line_spacing)) <= bh * size_tol:
+            fs = cand
+            break
+    else:
+        fs = min_size
+    box = text_render.put_text_horizontal(
+        fs, text, bw, bh, 'center', False,
+        fg, bg, region.target_lang, True, line_spacing or None)
+    gh, gw = box.shape[:2]
+    cx, cy = (x1 + x2) // 2, (y1 + y2) // 2
+    ox1 = max(cx - gw // 2, 0)
+    oy1 = max(cy - gh // 2, 0)
+    ox2 = min(ox1 + gw, img.shape[1])
+    oy2 = min(oy1 + gh, img.shape[0])
+    sub = box[:oy2 - oy1, :ox2 - ox1]
+    alpha = sub[:, :, 3:4].astype(np.float32) / 255.0
+    img[oy1:oy2, ox1:ox2] = np.clip(
+        img[oy1:oy2, ox1:ox2].astype(np.float32) * (1 - alpha)
+        + sub[:, :, :3].astype(np.float32) * alpha, 0, 255
+    ).astype(np.uint8)

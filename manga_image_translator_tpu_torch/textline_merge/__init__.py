@@ -17,6 +17,7 @@ import networkx as nx
 import numpy as np
 
 from ..utils.geometry import Quadrilateral, can_merge_textline
+from ..utils.profiling import span
 from ..utils.textblock import TextBlock
 
 
@@ -126,22 +127,23 @@ def merge_bboxes_text_region(bboxes: List[Quadrilateral], width: int,
 
 async def dispatch(textlines: List[Quadrilateral], width: int, height: int,
                    verbose: bool = False) -> List[TextBlock]:
-    text_regions: List[TextBlock] = []
-    for txtlns, fg_color, bg_color in merge_bboxes_text_region(
-            textlines, width, height):
-        total_logprobs = 0.0
-        for q in txtlns:
-            total_logprobs += np.log(max(q.prob, 1e-9)) * q.area
-        total_logprobs /= max(sum(q.area for q in textlines), 1e-9)
+    with span('merge.graph'):
+        text_regions: List[TextBlock] = []
+        for txtlns, fg_color, bg_color in merge_bboxes_text_region(
+                textlines, width, height):
+            total_logprobs = 0.0
+            for q in txtlns:
+                total_logprobs += np.log(max(q.prob, 1e-9)) * q.area
+            total_logprobs /= max(sum(q.area for q in textlines), 1e-9)
 
-        font_size = int(min(q.font_size for q in txtlns))
-        angle = float(np.rad2deg(np.mean([q.angle for q in txtlns])) - 90)
-        if abs(angle) < 3:
-            angle = 0
-        lines = [q.pts for q in txtlns]
-        texts = [q.text for q in txtlns]
-        region = TextBlock(lines, texts, font_size=font_size, angle=angle,
-                           prob=float(np.exp(total_logprobs)),
-                           fg_color=fg_color, bg_color=bg_color)
-        text_regions.append(region)
-    return text_regions
+            font_size = int(min(q.font_size for q in txtlns))
+            angle = float(np.rad2deg(np.mean([q.angle for q in txtlns])) - 90)
+            if abs(angle) < 3:
+                angle = 0
+            lines = [q.pts for q in txtlns]
+            texts = [q.text for q in txtlns]
+            region = TextBlock(lines, texts, font_size=font_size, angle=angle,
+                               prob=float(np.exp(total_logprobs)),
+                               fg_color=fg_color, bg_color=bg_color)
+            text_regions.append(region)
+        return text_regions

@@ -37,6 +37,7 @@ from torch import nn
 
 from ..device import device_named
 from ..ops.device_loop import DeviceLoop
+from ..utils.profiling import span, to_host
 
 _DTYPES = {
     'float32': (np.float32, 4), 'float': (np.float32, 4),
@@ -387,13 +388,17 @@ class Ct2Transformer(nn.Module):
         """
         if not batch_tokens:
             return []
-        search = BeamSearch(self, *self.prepare(batch_tokens, target_prefix),
-                            max_len=max_len, rep_penalty=repetition_penalty,
-                            beam_size=beam_size)
-        out_ids = search.run()
+        with span('translate.encode'):
+            search = BeamSearch(self, *self.prepare(batch_tokens,
+                                                    target_prefix),
+                                max_len=max_len,
+                                rep_penalty=repetition_penalty,
+                                beam_size=beam_size)
+        with span('translate.beam'):
+            out_ids = to_host(search.run()).numpy()
         self.last_steps = search.t
         results = []
-        for row in out_ids.cpu().numpy():
+        for row in out_ids:
             toks = []
             for tid in row:
                 if tid == self.eos_id:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from ..models import esrgan
+from ..utils.profiling import to_host
 from .common import OfflineUpscaler
 
 TILE = 256
@@ -110,7 +111,7 @@ class ESRGANUpscalerPytorch(OfflineUpscaler):
     def _to_u8(out: torch.Tensor) -> np.ndarray:
         """Clip, BGR → RGB, ``* 255`` and truncate to ``uint8``."""
         out = (torch.clamp(out, 0, 1).flip(-1) * 255.0).to(torch.uint8)
-        return out.cpu().numpy()
+        return to_host(out).numpy()
 
     async def _infer(self, image_batch: List[Image.Image],
                      upscale_ratio: float) -> List[Image.Image]:

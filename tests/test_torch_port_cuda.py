@@ -1190,3 +1190,61 @@ def test_beam_search_graph_equals_eager(dev, prefix):
             out.append((best, search.toks, search.scores, search.out_len))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+EXPORT_CHILD = r"""
+import json, sys, torch
+from manga_image_translator_tpu_torch.ops import device_loop
+from manga_image_translator_tpu_torch.utils import profiling
+profiling.PROFILE_DIR = sys.argv[1]
+dev = torch.device('cuda', 0)
+torch.cuda._sleep(1000)             # the kernel loaded before the page
+torch.cuda.synchronize()
+with profiling.page(export='sleep') as page:
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profiling.span('sleep'):
+        torch.cuda._sleep(2_000_000)
+        torch.cuda.synchronize()
+    loop = device_loop.DeviceLoop(dev)
+    x = torch.zeros((), device=dev)
+    loop.run(lambda _: x.add_(1), 0, 8, 4, lambda: x > 100)
+print(json.dumps(page.counters))
+"""
+
+
+def test_exported_spans_meet_the_device_kernels(dev, tmp_path):
+    """The exporter's Chrome trace puts the tracer's spans and the
+    profiler's device events on one timebase: a span around a sleeping
+    kernel and a synchronise starts and ends within 100 us of it; the graph
+    capture of a decode loop is a span of its own, and the counters count
+    the loop's host waits. In a process of its own, as a run with
+    ``MIT_TPU_PROFILE_DIR`` is: after this file's other tests, a session
+    in the same process came back without the kernel once."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, '-c', EXPORT_CHILD,
+                           str(tmp_path)], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+    counters = json.loads(done.stdout.strip().splitlines()[-1])
+    (path,) = tmp_path.iterdir()
+    events = json.loads(path.read_text())['traceEvents']
+    sleeps = [e for e in events if e.get('ph') == 'X'
+              and e.get('cat') == 'kernel'
+              and ('sleep' in e['name'].lower()
+                   or 'spin' in e['name'].lower())]
+    kernel = max(sleeps, key=lambda e: e['dur'])
+    span = next(e for e in events
+                if e.get('cat') == 'span' and e['name'] == 'sleep')
+    start = span['ts'] - kernel['ts']
+    end = span['ts'] + span['dur'] - kernel['ts'] - kernel['dur']
+    assert abs(start) < 100 and abs(end) < 100, (start, end)
+    names = [e['name'] for e in events if e.get('cat') == 'span']
+    assert names == ['sleep', 'graph.capture']
+    # one flag read at step 4, the side stream's synchronise
+    assert counters == {'host_syncs': 2}
+    assert [e['args'] for e in events if e.get('ph') == 'C'] == [counters]

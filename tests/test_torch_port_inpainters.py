@@ -35,6 +35,7 @@ from manga_image_translator_tpu_torch.config import (Config, Inpainter,
 from manga_image_translator_tpu_torch.inpainting import (inpainting_aot,
                                                          inpainting_lama)
 from manga_image_translator_tpu_torch.models import aot, lama
+from manga_image_translator_tpu_torch.utils import profiling
 from manga_image_translator_tpu_torch.utils.generic import Context
 from manga_image_translator_tpu_torch.weights import torch_state_dict_from_jax
 
@@ -145,29 +146,33 @@ def results():
         pmpe._loaded = True
 
         out = {}
-        for key, port, ref, pages in (
-                ('aot', paot, jaot, dict(PAGES, tiny=TINY)),
-                ('mpe', pmpe, jmpe, PAGES)):
-            for name, (page, mask) in pages.items():
+        # the tracer on: the MPE mask encodings are its spans
+        with profiling.forced(), profiling.page() as traced:
+            for key, port, ref, pages in (
+                    ('aot', paot, jaot, dict(PAGES, tiny=TINY)),
+                    ('mpe', pmpe, jmpe, PAGES)):
+                for name, (page, mask) in pages.items():
+                    port.forwards = []
+                    got = asyncio.run(port.inpaint(
+                        page, mask,
+                        InpainterConfig(inpainting_precision='fp32'), SIZE))
+                    want = asyncio.run(ref.inpaint(
+                        page, mask, JICfg(inpainting_precision='fp32'),
+                        SIZE))
+                    out[key, name] = (page, mask, got, want,
+                                      list(port.forwards))
+                cfg = {'inpainter': {'inpainter': port_key(key),
+                                     'inpainting_precision': 'fp32'}}
                 port.forwards = []
-                got = asyncio.run(port.inpaint(
-                    page, mask, InpainterConfig(inpainting_precision='fp32'),
-                    SIZE))
-                want = asyncio.run(ref.inpaint(
-                    page, mask, JICfg(inpainting_precision='fp32'), SIZE))
-                out[key, name] = (page, mask, got, want, list(port.forwards))
-            cfg = {'inpainter': {'inpainter': port_key(key),
-                                 'inpainting_precision': 'fp32'}}
-            port.forwards = []
-            out[key, 'batch'] = (
-                asyncio.run(_batch_inpaint(
-                    port_mt.MangaTranslator({'use_gpu': False}), Context,
-                    Config(**cfg))),
-                asyncio.run(_batch_inpaint(
-                    jax_mt.MangaTranslator({'use_gpu': False}), JContext,
-                    JConfig(**cfg))),
-                list(port.forwards))
-        out['mpe_encodings'] = list(pmpe.encodings)
+                out[key, 'batch'] = (
+                    asyncio.run(_batch_inpaint(
+                        port_mt.MangaTranslator({'use_gpu': False}), Context,
+                        Config(**cfg))),
+                    asyncio.run(_batch_inpaint(
+                        jax_mt.MangaTranslator({'use_gpu': False}), JContext,
+                        JConfig(**cfg))),
+                    list(port.forwards))
+        out['mpe_page'] = traced
     finally:
         mp.undo()
     return out
@@ -213,11 +218,18 @@ def test_batch_inpaint_matches_jax(results, key):
 
 
 def test_mpe_encodes_every_crop(results):
-    """One host encoding per generator forward, of as many masks as the
-    forward has rows."""
-    enc = results['mpe_encodings']
-    assert enc and all(n >= 1 and ms >= 0 for n, ms in enc)
-    assert any(n == 2 for n, _ in enc)        # the pooled batch bucket
+    """One host encoding of the masks (``inpaint.mpe_encode``) inside each
+    LaMa-MPE generator forward (``inpaint.forward``), the pooled two-row
+    batch bucket among them."""
+    forwards = [f for k, case in results.items() if k[:1] == ('mpe',)
+                for f in case[-1]]
+    spans = results['mpe_page'].spans
+    fwd = [sp for sp in spans if sp.name == 'inpaint.forward']
+    enc = [sp for sp in spans if sp.name == 'inpaint.mpe_encode']
+    assert len(fwd) == len(enc) == len(forwards) > 0
+    assert sorted(id(sp.parent) for sp in enc) == sorted(map(id, fwd))
+    assert all(sp.parent.t0 <= sp.t0 <= sp.t1 <= sp.parent.t1 for sp in enc)
+    assert any(n == 2 for n, _, _ in forwards)    # the pooled batch bucket
 
 
 def _masks():
