@@ -1,7 +1,6 @@
 """OCR base classes (contract: reference ocr/common.py:12-63)."""
 from __future__ import annotations
 
-import itertools
 import os
 from abc import abstractmethod
 from collections import Counter
@@ -13,7 +12,7 @@ import torch
 
 from ..config import OcrConfig
 from ..ops import warp
-from ..utils.geometry import Quadrilateral, can_merge_textline
+from ..utils.geometry import Quadrilateral, merge_graph_edges
 from ..utils.inference import InfererModule, ModelWrapper
 from ..utils.profiling import span
 from ..utils.textblock import TextBlock
@@ -34,10 +33,7 @@ class CommonOCR(InfererModule):
             return
         G = nx.Graph()
         G.add_nodes_from(range(len(bboxes)))
-        for (u, ubox), (v, vbox) in itertools.combinations(
-                enumerate(bboxes), 2):
-            if can_merge_textline(ubox, vbox, aspect_ratio_tol=1):
-                G.add_edge(u, v)
+        G.add_edges_from(merge_graph_edges(bboxes, aspect_ratio_tol=1))
         for node_set in nx.algorithms.components.connected_components(G):
             nodes = list(node_set)
             dirs = [bboxes[i].direction for i in nodes]

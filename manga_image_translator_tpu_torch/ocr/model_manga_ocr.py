@@ -12,7 +12,6 @@ that model raises, where the JAX package logs it and keeps the 48px text.
 """
 from __future__ import annotations
 
-import itertools
 from typing import List, Tuple
 
 import networkx as nx
@@ -21,7 +20,8 @@ from PIL import Image
 
 from ..config import OcrConfig
 from ..device import device_named
-from ..utils.geometry import Quadrilateral, can_merge_textline
+from ..textline_merge import MERGE_TOLERANCES
+from ..utils.geometry import Quadrilateral, merge_graph_edges
 from .common import OfflineOCR
 from .model_48px import Model48pxOCR
 
@@ -34,11 +34,7 @@ async def merge_bboxes(textlines: List[Quadrilateral], width: int,
     (reference model_manga_ocr.py:25-88 uses the textline-merge graph)."""
     G = nx.Graph()
     G.add_nodes_from(range(len(textlines)))
-    for (u, ub), (v, vb) in itertools.combinations(enumerate(textlines), 2):
-        if can_merge_textline(ub, vb, aspect_ratio_tol=1.3,
-                              font_size_ratio_tol=2, char_gap_tolerance=1,
-                              char_gap_tolerance2=3):
-            G.add_edge(u, v)
+    G.add_edges_from(merge_graph_edges(textlines, **MERGE_TOLERANCES))
     merged: List[Quadrilateral] = []
     merged_idx: List[List[int]] = []
     for comp in nx.connected_components(G):

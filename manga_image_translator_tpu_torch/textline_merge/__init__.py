@@ -5,7 +5,9 @@ with edges where :func:`can_merge_textline` holds, take connected components,
 recursively split each component by Kruskal-MST edge-weight outliers, then
 majority-vote direction, average colors, and sort lines in reading order.
 
-This is O(lines²) on a handful of quads — host work by design.
+Host work: the graph is O(lines²), a few hundred pairs on a dialogue page.
+Decided one pair at a time it took most of this stage, with the card idle
+throughout, so ``merge_graph_edges`` decides all pairs at once.
 """
 from __future__ import annotations
 
@@ -16,9 +18,13 @@ from typing import List, Set
 import networkx as nx
 import numpy as np
 
-from ..utils.geometry import Quadrilateral, can_merge_textline
+from ..utils.geometry import Quadrilateral, merge_graph_edges
 from ..utils.profiling import span
 from ..utils.textblock import TextBlock
+
+# ``can_merge_textline``'s tolerances for lines of one region
+MERGE_TOLERANCES = dict(aspect_ratio_tol=1.3, font_size_ratio_tol=2,
+                        char_gap_tolerance=1, char_gap_tolerance2=3)
 
 
 def split_text_region(bboxes: List[Quadrilateral],
@@ -77,11 +83,7 @@ def merge_bboxes_text_region(bboxes: List[Quadrilateral], width: int,
                              height: int):
     G = nx.Graph()
     G.add_nodes_from(range(len(bboxes)))
-    for (u, ubox), (v, vbox) in itertools.combinations(enumerate(bboxes), 2):
-        if can_merge_textline(ubox, vbox, aspect_ratio_tol=1.3,
-                              font_size_ratio_tol=2, char_gap_tolerance=1,
-                              char_gap_tolerance2=3):
-            G.add_edge(u, v)
+    G.add_edges_from(merge_graph_edges(bboxes, **MERGE_TOLERANCES))
 
     region_indices: List[Set[int]] = []
     for node_set in nx.algorithms.components.connected_components(G):

@@ -6,8 +6,14 @@ re-implemented from scratch with numpy + OpenCV only (the reference additionally
 uses shapely and a hand-rolled GJK solver; here convex-polygon distance/area are
 computed directly, which is exact for quads).
 
-These run on host: textline geometry is O(number of lines), tiny next to the
-device work, and full of data-dependent branching that XLA would hate.
+These run on the host: textline geometry is full of data-dependent branching,
+and a page's few dozen lines are too few to be worth a launch and a readback.
+It is not cheap next to the device work: decided one pair at a time, the
+textline merge predicate over a 24-40 line dialogue page cost about as much
+host time as every kernel of the page together. So the two line graphs of a
+page (the OCR's reading directions and the textline merge) decide it for all
+pairs at once (``merge_graph_edges``), and every polygon distance, batched or
+single, is the same array arithmetic (``_pair_distances``).
 """
 from __future__ import annotations
 
@@ -17,17 +23,29 @@ from typing import List, Optional, Sequence, Tuple
 import cv2
 import numpy as np
 
+from .profiling import count
+
 __all__ = [
     "BBox",
     "Quadrilateral",
     "sort_points",
     "convex_area",
     "convex_polygon_distance",
-    "segment_distance",
     "point_segment_distance",
     "can_merge_textline",
+    "merge_graph_edges",
     "can_merge_region_coarse",
 ]
+
+# pairs ``merge_graph_edges`` screens at once, in (rows, N) arrays of at
+# most 128 KiB, and pairs it measures at once, in (4, 1024, 4, 4) float64
+# temporaries of 512 KiB
+_PAIRS_PER_BLOCK = 16384
+_DISTANCES_PER_CALL = 1024
+# px a pair's bounding-box gap may exceed its distance limit and still be
+# decided in full: the gap is a lower bound of the polygon distance, and
+# this covers the rounding of either side
+_CULL_SLACK = 1e-6
 
 
 # --------------------------------------------------------------------------
@@ -47,26 +65,6 @@ def point_segment_distance(p: np.ndarray, a: np.ndarray, b: np.ndarray) -> float
     return float(np.linalg.norm(p - (a + t * ab)))
 
 
-def segment_distance(a0, a1, b0, b1) -> float:
-    """Distance between segments ``a0a1`` and ``b0b1`` (0 if they intersect)."""
-    a0, a1, b0, b1 = (np.asarray(x, dtype=np.float64) for x in (a0, a1, b0, b1))
-
-    def orient(p, q, r):
-        v = (q[0] - p[0]) * (r[1] - p[1]) - (q[1] - p[1]) * (r[0] - p[0])
-        return 0 if abs(v) < 1e-12 else (1 if v > 0 else -1)
-
-    d1, d2 = orient(a0, a1, b0), orient(a0, a1, b1)
-    d3, d4 = orient(b0, b1, a0), orient(b0, b1, a1)
-    if d1 != d2 and d3 != d4:
-        return 0.0
-    return min(
-        point_segment_distance(a0, b0, b1),
-        point_segment_distance(a1, b0, b1),
-        point_segment_distance(b0, a0, a1),
-        point_segment_distance(b1, a0, a1),
-    )
-
-
 def _hull(points: np.ndarray) -> np.ndarray:
     """Convex hull vertices (CCW) of an (N,2) float array."""
     pts = np.asarray(points, dtype=np.float32).reshape(-1, 1, 2)
@@ -81,31 +79,83 @@ def convex_area(points: np.ndarray) -> float:
     return float(cv2.contourArea(h.astype(np.float32)))
 
 
-def _point_in_convex(p: np.ndarray, hull: np.ndarray) -> bool:
-    res = cv2.pointPolygonTest(hull.astype(np.float32), (float(p[0]), float(p[1])), False)
-    return res >= 0
+def _padded_hull(points: np.ndarray) -> np.ndarray:
+    """``_hull(points)`` with its last vertex repeated up to 4 vertices, so
+    that every quad's hull has the shape (4, 2). A repeated vertex adds an
+    edge of length 0, which changes no distance and no containment."""
+    h = _hull(points)
+    if len(h) < 4:
+        h = np.concatenate([h, np.repeat(h[-1:], 4 - len(h), axis=0)])
+    return h
+
+
+def _contains_first_vertex(hull: np.ndarray, other: np.ndarray) -> np.ndarray:
+    """Whether ``hull[k]`` holds ``other[k, 0]`` or has it on its boundary,
+    for (P, V, 2) hulls: ``cv2.pointPolygonTest(hull, pt, False) >= 0``
+    computed as OpenCV computes it (an even-odd crossing count with float32
+    differences and float64 products), for all P at once."""
+    h = hull.astype(np.float32)
+    vx, vy = h[..., 0], h[..., 1]                        # edge ends
+    v0x, v0y = np.roll(vx, 1, axis=1), np.roll(vy, 1, axis=1)  # edge starts
+    p = other[:, 0].astype(np.float32)
+    px, py = p[:, :1], p[:, 1:]
+    skip = (((v0y <= py) & (vy <= py)) | ((v0y > py) & (vy > py))
+            | ((v0x < px) & (vx < px)))
+    on_skipped = skip & (py == vy) & (
+        (px == vx) | ((py == v0y) & (((v0x <= px) & (px <= vx))
+                                     | ((vx <= px) & (px <= v0x)))))
+    f64 = np.float64
+    cross = ((py - v0y).astype(f64) * (vx - v0x).astype(f64)
+             - (px - v0x).astype(f64) * (vy - v0y).astype(f64))
+    on_edge = ~skip & (cross == 0)
+    crossings = (~skip & (np.where(vy < v0y, -cross, cross) > 0)).sum(axis=1)
+    return (on_skipped | on_edge).any(axis=1) | (crossings % 2 == 1)
+
+
+def _pair_distances(ha: np.ndarray, hb: np.ndarray) -> np.ndarray:
+    """Distances between the convex polygons ``ha[k]`` and ``hb[k]``, (P, V,
+    2) and (P, W, 2) float64 hulls (``_padded_hull``), 0 where they overlap.
+
+    Exact for convex sets: 0 where one holds the other's first vertex or
+    two edges cross, else the least distance from an edge's end to an edge
+    of the other polygon. Each pair's number comes from its own elements by
+    the same operations whatever P is, so a batch reads what single calls
+    read, to the bit. Replaces shapely's ``Polygon.distance`` and the
+    reference's GJK solver (generic.py:723-828)."""
+    n = len(ha)
+    a0, a1, b0, b1 = np.broadcast_arrays(
+        ha[:, :, None], np.roll(ha, -1, axis=1)[:, :, None],
+        hb[:, None], np.roll(hb, -1, axis=1)[:, None])   # (P, V, W, 2) each
+    # each edge pair four ways: the end of one edge against the other edge
+    p = np.stack([b0, b1, a0, a1])
+    s0 = np.stack([a0, a0, b0, b0])
+    s1 = np.stack([a1, a1, b1, b1])
+    px, py = p[..., 0], p[..., 1]
+    ax, ay, bx, by = s0[..., 0], s0[..., 1], s1[..., 0], s1[..., 1]
+    # the side of the edge's line that the end lies on: -1, 0 or 1
+    abx, aby = bx - ax, by - ay
+    side = abx * (py - ay) - aby * (px - ax)
+    side = np.where(np.abs(side) < 1e-12, 0.0, np.sign(side))
+    crossed = (side[0] != side[1]) & (side[2] != side[3])
+    # the distance from the end to the edge (to its start where it has
+    # length 0)
+    denom = abx * abx + aby * aby
+    t = np.divide((px - ax) * abx + (py - ay) * aby, denom,
+                  out=np.zeros_like(denom), where=denom > 0)
+    t = np.clip(t, 0.0, 1.0)
+    dx, dy = px - (ax + t * abx), py - (ay + t * aby)
+    d = np.sqrt(dx * dx + dy * dy).min(axis=0)
+    d = np.where(crossed, 0.0, d).min(axis=(1, 2))
+    inside = _contains_first_vertex(np.concatenate([hb, ha]),
+                                    np.concatenate([ha, hb]))
+    return np.where(inside[:n] | inside[n:], 0.0, d)
 
 
 def convex_polygon_distance(pts_a: np.ndarray, pts_b: np.ndarray) -> float:
-    """Minimum distance between two convex polygons (0 when overlapping).
-
-    Exact for convex sets: min over all edge pairs, with a containment check
-    for the fully-nested case. Replaces shapely's ``Polygon.distance`` and the
-    reference's GJK solver (generic.py:723-828).
-    """
-    ha, hb = _hull(pts_a), _hull(pts_b)
-    if _point_in_convex(ha[0], hb) or _point_in_convex(hb[0], ha):
-        return 0.0
-    best = np.inf
-    na, nb = len(ha), len(hb)
-    for i in range(na):
-        for j in range(nb):
-            d = segment_distance(ha[i], ha[(i + 1) % na], hb[j], hb[(j + 1) % nb])
-            if d < best:
-                best = d
-                if best == 0.0:
-                    return 0.0
-    return float(best)
+    """Minimum distance between the convex hulls of two point sets (0 when
+    they overlap): ``_pair_distances`` of one pair."""
+    return float(_pair_distances(_padded_hull(pts_a)[None],
+                                 _padded_hull(pts_b)[None])[0])
 
 
 def sort_points(pts: np.ndarray) -> Tuple[np.ndarray, bool]:
@@ -252,6 +302,11 @@ class Quadrilateral:
                     self.bg_r, self.bg_g, self.bg_b)
 
     @functools.cached_property
+    def hull(self) -> np.ndarray:
+        """The convex hull of the corners, (4, 2) float64 (``_padded_hull``)."""
+        return _padded_hull(self.pts)
+
+    @functools.cached_property
     def centroid(self) -> np.ndarray:
         return self.pts.mean(axis=0)
 
@@ -286,7 +341,7 @@ class Quadrilateral:
         return best
 
     def poly_distance(self, other: "Quadrilateral") -> float:
-        return convex_polygon_distance(self.pts, other.pts)
+        return float(_pair_distances(self.hull[None], other.hull[None])[0])
 
     # -- perspective crop ----------------------------------------------------
     def get_transformed_region(self, img: np.ndarray, direction: str,
@@ -424,6 +479,86 @@ def can_merge_textline(a: Quadrilateral, b: Quadrilateral, ratio: float = 1.9,
             return False
         return True
     return False
+
+
+def merge_graph_edges(quads: Sequence[Quadrilateral], ratio: float = 1.9,
+                      discard_connection_gap: float = 2,
+                      char_gap_tolerance: float = 0.6,
+                      char_gap_tolerance2: float = 1.5,
+                      font_size_ratio_tol: float = 1.5,
+                      aspect_ratio_tol: float = 2) -> List[Tuple[int, int]]:
+    """The pairs ``(u, v)``, ``u < v``, in ``itertools.combinations`` order,
+    for which ``can_merge_textline(quads[u], quads[v], ...)`` holds, decided
+    for all pairs at once.
+
+    Each quad's font size, aspect ratio, angle, alignment, box and hull are
+    read once. Each block of rows screens its pairs with every test that
+    needs no distance, and with the bounding-box gap of the two hulls (a
+    lower bound of their distance) against the pair's distance limit; the
+    pairs left get their polygon distances (``_pair_distances``) and the
+    rest of the predicate, branch for branch, as arrays. Corners are taken
+    as integers or float64. Counts the pairs decided in ``geom.pairs``."""
+    n = len(quads)
+    count('geom.pairs', n * (n - 1) // 2)
+    if n < 2:
+        return []
+    fs = np.array([q.font_size for q in quads], np.float64)
+    ar = np.array([q.aspect_ratio for q in quads], np.float64)
+    angle = np.array([q.angle for q in quads], np.float64)
+    aligned = np.array([q.is_approximate_axis_aligned for q in quads], bool)
+    box = np.array([(q.aabb.x, q.aabb.y, q.aabb.w, q.aabb.h) for q in quads],
+                   np.float64)
+    hulls = np.stack([q.hull for q in quads])
+    lo, hi = hulls.min(axis=1), hulls.max(axis=1)
+    # the distance a pair may not pass: the first test's, or its branch's
+    aligned_limit = min(discard_connection_gap, char_gap_tolerance)
+    rotated_limit = min(discard_connection_gap, char_gap_tolerance2)
+    inv_tol = 1.0 / aspect_ratio_tol
+    near_angle = 15 * np.pi / 180
+
+    edges: List[Tuple[int, int]] = []
+    rows = max(1, _PAIRS_PER_BLOCK // n)
+    cols = np.arange(n)
+    for r0 in range(0, n - 1, rows):
+        r = np.arange(r0, min(r0 + rows, n - 1))[:, None]
+        cs = np.minimum(fs[r], fs)
+        both = aligned[r] & aligned
+        gap = np.maximum(np.maximum(lo[None] - hi[r], lo[r] - hi[None]),
+                         0.0).max(axis=2)
+        with np.errstate(divide='ignore', invalid='ignore'):
+            keep = ((cols > r) & (cs > 0)
+                    & ~(np.maximum(fs[r], fs) / cs > font_size_ratio_tol)
+                    & ~((ar[r] > aspect_ratio_tol) & (ar < inv_tol))
+                    & ~((ar > aspect_ratio_tol) & (ar[r] < inv_tol))
+                    & (both | (np.abs(angle[r] - angle) < near_angle))
+                    & (gap <= cs * np.where(both, aligned_limit,
+                                            rotated_limit) + _CULL_SLACK))
+        u, v = np.nonzero(keep)
+        if len(u) == 0:
+            continue
+        u += r0
+        cs, both = cs[u - r0, v], both[u - r0, v]
+        dist = np.concatenate([
+            _pair_distances(hulls[u[i:i + _DISTANCES_PER_CALL]],
+                            hulls[v[i:i + _DISTANCES_PER_CALL]])
+            for i in range(0, len(u), _DISTANCES_PER_CALL)])
+        x1, y1, w1, h1 = box[u].T
+        x2, y2, w2, h2 = box[v].T
+        tol2 = cs * char_gap_tolerance2
+        wide1, wide2 = w1 > h1 * ratio, w2 > h2 * ratio
+        tall1, tall2 = h1 > w1 * ratio, h2 > w2 * ratio
+        same_x = (np.abs(x1 - x2) < tol2) | (np.abs(x1 + w1 - (x2 + w2)) < tol2)
+        same_y = (np.abs(y1 - y2) < tol2) | (np.abs(y1 + h1 - (y2 + h2)) < tol2)
+        aligned_ok = ~(dist >= cs * char_gap_tolerance) & (
+            (np.abs(x1 + w1 // 2 - (x2 + w2 // 2)) < char_gap_tolerance2)
+            | (~(wide1 & tall2) & ~(wide2 & tall1)
+               & np.where(wide1 | wide2, same_x, (tall1 | tall2) & same_y)))
+        rotated_ok = (~(dist > tol2)
+                      & ~(np.abs(fs[u] - fs[v]) / cs > 0.25))
+        ok = (~(dist > discard_connection_gap * cs)
+              & np.where(both, aligned_ok, rotated_ok))
+        edges.extend(zip(u[ok].tolist(), v[ok].tolist()))
+    return edges
 
 
 def can_merge_region_coarse(a: Quadrilateral, b: Quadrilateral,

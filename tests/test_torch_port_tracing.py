@@ -266,3 +266,20 @@ def test_counters_from_threads_lose_nothing():
         sys.setswitchinterval(switch)
     assert not any(t.is_alive() for t in threads)
     assert page.counters == {'host_syncs': 16 * 2000}
+
+
+def test_merge_graphs_count_their_pairs():
+    """One OCR direction pass and one merge over N lines decide every pair
+    once each: ``geom.pairs`` reads N(N-1)."""
+    from manga_image_translator_tpu_torch import textline_merge
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    lines = [Quadrilateral(np.array([[x, y], [x + 30, y], [x + 30, y + 200],
+                                     [x, y + 200]]))
+             for x in range(100, 400, 36) for y in (100, 400)]
+    n = len(lines)
+    with profiling.forced(), profiling.page() as page:
+        directions = list(ocr.get_ocr(Ocr.ocr48px)._generate_text_direction(
+            lines))
+        regions = asyncio.run(textline_merge.dispatch(lines, 600, 800))
+    assert len(directions) == n and len(regions) > 1
+    assert page.counters == {'geom.pairs': n * (n - 1)}
