@@ -23,8 +23,25 @@ from ..ops.bilateral import bilateral_filter
 from ..ops.crf import crf_refine_batch
 from ..utils.bubble import is_ignore
 from ..utils.geometry import Quadrilateral
-from ..utils.profiling import span, to_host
+from ..utils.profiling import count, span, to_host
 from ..utils.textblock import TextBlock
+
+
+# components ``assign_components`` decides at once against every line, in
+# (rows, M) arrays of at most 128 KiB
+_PAIRS_PER_BLOCK = 16384
+# px by which a component's rectangle may miss a line's box and still have
+# its overlap with a quad that is not convex taken from cv2, and the slack
+# of the box test that spares the distances of lines beyond half a glyph
+_TOUCH_PX = 1e-2
+# bound on how far an overlap clipped here may lie from cv2's, in px^2 per
+# px of the rectangle's half perimeter (cv2 rounds each clipped corner to
+# float32: 6e-5 px at 1,024-2,048 px)
+_AREA_TOL = 4e-3
+# relative bound on how far a distance computed here may lie from cv2's
+_DIST_TOL = 1e-6
+# relative room kept around ties and thresholds for float32 rounding
+_REL_MARGIN = 1e-6
 
 
 def _point_to_poly_distance(pts: np.ndarray, point) -> float:
@@ -133,68 +150,252 @@ def complete_mask_fill(mask_shape, text_lines) -> np.ndarray:
     return final_mask
 
 
+class _Lines:
+    """The textlines as ``assign_components`` reads them, once: each quad's
+    corners as the float32 cv2 is given, its ``contourArea``, box and font
+    size, and whether it is a convex quad of some area (``regular``: only
+    such quads are clipped here; cv2 decides the overlaps of the rest)."""
+
+    def __init__(self, textlines: List[Quadrilateral]):
+        self.pts = np.stack([q.pts for q in textlines]).astype(np.float32)
+        self.area = np.array([cv2.contourArea(p) for p in self.pts])
+        self.lo = self.pts.min(axis=1).astype(np.float64)
+        self.hi = self.pts.max(axis=1).astype(np.float64)
+        self.font = np.array([q.font_size for q in textlines])
+        edge = np.roll(self.pts, -1, axis=1).astype(np.float64) - self.pts
+        nxt = np.roll(edge, -1, axis=1)
+        turn = edge[..., 0] * nxt[..., 1] - edge[..., 1] * nxt[..., 0]
+        bend = _REL_MARGIN * (np.hypot(*edge.transpose(2, 0, 1))
+                              * np.hypot(*nxt.transpose(2, 0, 1)))
+        self.regular = (((turn > bend).all(axis=1)
+                         | (turn < -bend).all(axis=1))
+                        & (self.area >= 1))
+
+
+def _rect_pts(st: np.ndarray) -> np.ndarray:
+    """The corners of the rectangle of a component's stats row, as the
+    scalar assignment built them."""
+    x1, y1, w1, h1 = (int(v) for v in st[:4])
+    return np.array([[x1, y1], [x1 + w1, y1], [x1 + w1, y1 + h1],
+                     [x1, y1 + h1]], np.float64)
+
+
+def _clip_areas(quads: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """The area of each convex quad (P, 4, 2) inside its rectangle (P, 4:
+    x1, y1, x2, y2): the quad clipped by the rectangle's four sides in turn
+    (Sutherland-Hodgman; each side adds at most one corner, so at most 8),
+    then the shoelace formula. Each polygon's live corners are the first
+    ``n`` of its row."""
+    poly = quads.astype(np.float64)
+    rows = np.arange(len(poly))[:, None]
+    n = np.full(len(poly), 4)
+    for axis, sign, side in ((0, 1, 0), (1, 1, 1), (0, -1, 2), (1, -1, 3)):
+        slot = np.arange(poly.shape[1])
+        live = slot < n[:, None]
+        nxt = poly[rows, np.where(slot + 1 < n[:, None], slot + 1, 0)]
+        bound = boxes[:, side, None]
+        s = sign * (poly[..., axis] - bound)
+        t = sign * (nxt[..., axis] - bound)
+        with np.errstate(divide='ignore', invalid='ignore'):
+            cut = poly + (s / (s - t))[..., None] * (nxt - poly)
+        cut[..., axis] = bound
+        keep = np.stack([live & (s >= 0), live & ((s >= 0) != (t >= 0))],
+                        axis=2).reshape(len(poly), -1)
+        n = keep.sum(axis=1)
+        order = np.argsort(~keep, axis=1, kind='stable')[:, :max(n.max(), 1)]
+        poly = np.stack([poly, cut], axis=2).reshape(len(poly), -1, 2)[
+            rows, order]
+    slot = np.arange(poly.shape[1])
+    nxt = poly[rows, np.where(slot + 1 < n[:, None], slot + 1, 0)]
+    with np.errstate(invalid='ignore'):
+        cross = poly[..., 0] * nxt[..., 1] - nxt[..., 0] * poly[..., 1]
+    return 0.5 * np.abs(np.where(slot < n[:, None], cross, 0.0).sum(axis=1))
+
+
+def _centroid_distances(pt: np.ndarray, quads: np.ndarray):
+    """``cv2.pointPolygonTest``'s distance from each point (P, 2) to its
+    float32 quad (P, 4, 2), 0 inside, computed as cv2 computes it (corner
+    differences in float32, the rest in float64, crossings counted on a ray
+    to +x)."""
+    v = quads
+    v0 = np.roll(v, 1, axis=1)
+    p = pt.astype(np.float32)[:, None]
+    d = (v - v0).astype(np.float64)
+    d1 = (p - v0).astype(np.float64)
+    d2 = (p - v).astype(np.float64)
+    cross = d1[..., 1] * d[..., 0] - d1[..., 0] * d[..., 1]
+    with np.errstate(divide='ignore', invalid='ignore'):
+        seg = np.where((d1 * d).sum(axis=-1) <= 0, (d1 * d1).sum(axis=-1),
+                       np.where((d2 * d).sum(axis=-1) >= 0,
+                                (d2 * d2).sum(axis=-1),
+                                cross * cross / (d * d).sum(axis=-1)))
+    px, py = p[..., 0], p[..., 1]
+    skip = (((v0[..., 1] <= py) & (v[..., 1] <= py))
+            | ((v0[..., 1] > py) & (v[..., 1] > py))
+            | ((v0[..., 0] < px) & (v[..., 0] < px)))
+    up = np.where(d[..., 1] < 0, -cross, cross) > 0
+    inside = (~skip & up).sum(axis=-1) % 2 == 1
+    return np.where(inside, 0.0, np.sqrt(seg.min(axis=-1)))
+
+
+def _owners(st: np.ndarray, lines: _Lines,
+            keep_threshold: float) -> np.ndarray:
+    """The line each component of the stats rows ``st`` goes to, or -1: the
+    scalar assignment's decisions for all pairs at once. A pair whose boxes
+    do not overlap overlaps by exactly 0; the rest are clipped here, or
+    taken from cv2 where the quad is not convex. Each decision (the first
+    argmax of the ratios, the ``keep_threshold`` test, the first argmin of
+    the distances, the half glyph test) that a value near a tie or a
+    threshold could turn is settled with the scalar assignment's own cv2
+    calls and expression."""
+    x1, y1, w1, h1, area1 = st[:, :5].astype(np.float64).T
+    K, M = len(st), len(lines.area)
+    box = np.stack([x1, y1, x1 + w1, y1 + h1], axis=1)
+    reach = np.minimum(
+        np.minimum(box[:, None, 2], lines.hi[:, 0])
+        - np.maximum(box[:, None, 0], lines.lo[:, 0]),
+        np.minimum(box[:, None, 3], lines.hi[:, 1])
+        - np.maximum(box[:, None, 1], lines.lo[:, 1]))
+    # a convex quad and a rectangle whose boxes only touch share no area,
+    # and cv2 reads 0; for a crossed or concave quad it may read -1
+    k, m = np.nonzero((reach > 0)
+                      | (~lines.regular & (reach >= -_TOUCH_PX)))
+    count('mask.pairs', len(k))
+    overlap = np.zeros((K, M))
+    exact = np.ones((K, M), bool)
+
+    def settle_overlap(kk, mm):
+        for a, b in zip(kk.tolist(), mm.tolist()):
+            overlap[a, b] = _convex_intersection_area(lines.pts[b],
+                                                      _rect_pts(st[a]))
+        exact[kk, mm] = True
+
+    clip = lines.regular[m]
+    if clip.any():
+        overlap[k[clip], m[clip]] = _clip_areas(lines.pts[m[clip]],
+                                                box[k[clip]])
+        exact[k[clip], m[clip]] = False
+    settle_overlap(k[~clip], m[~clip])
+
+    denom = np.maximum(np.minimum(area1[:, None], lines.area), 1e-9)
+    err = np.where(exact, 0.0, _AREA_TOL * (w1 + h1)[:, None] / denom)
+    ratio = overlap / denom
+    floor = (ratio - err).max(axis=1, keepdims=True)
+    cand = ratio + err >= floor - _REL_MARGIN * np.abs(floor)
+    tie = cand & ~exact & (cand.sum(axis=1) > 1)[:, None]
+    if tie.any():
+        settle_overlap(*np.nonzero(tie))
+        ratio = overlap / denom
+        err[tie] = 0.0
+    avg = np.argmax(np.where(cand, ratio.astype(np.float32), -np.inf),
+                    axis=1)
+    owner = np.where(area1 >= lines.area[avg], -1, avg)
+
+    r, e = ratio[np.arange(K), avg], err[np.arange(K), avg]
+    fallback = r <= keep_threshold
+    for i in np.nonzero((owner >= 0) & (np.abs(r - keep_threshold)
+                                        <= e + _REL_MARGIN * keep_threshold)
+                        )[0].tolist():
+        if not exact[i, avg[i]]:
+            settle_overlap(np.array([i]), avg[i:i + 1])
+        fallback[i] = (np.float32(overlap[i, avg[i]] / denom[i, avg[i]])
+                       <= keep_threshold)
+    far = np.nonzero((owner >= 0) & fallback)[0]
+    if len(far) == 0:
+        return owner
+
+    centroid = np.stack([x1[far] + w1[far] / 2.0, y1[far] + h1[far] / 2.0],
+                        axis=1)
+    # a line whose box lies half a glyph (the most a unit can be) or more
+    # from a centroid can neither keep its component nor lie nearer than a
+    # line that does: its distance stays infinite
+    bound = 0.5 * np.maximum(np.minimum(w1[far], h1[far]), 10) + _TOUCH_PX
+    box_gap = np.hypot(
+        np.maximum(np.maximum(lines.lo[:, 0] - centroid[:, :1],
+                              centroid[:, :1] - lines.hi[:, 0]), 0),
+        np.maximum(np.maximum(lines.lo[:, 1] - centroid[:, 1:],
+                              centroid[:, 1:] - lines.hi[:, 1]), 0))
+    f, m = np.nonzero(box_gap < bound[:, None])
+    dist = np.full((len(far), M), np.inf)
+    exact = np.ones((len(far), M), bool)
+    dist[f, m] = _centroid_distances(centroid[f], lines.pts[m])
+    exact[f, m] = dist[f, m] == 0.0
+
+    def settle_distance(ff, mm):
+        for a, b in zip(ff.tolist(), mm.tolist()):
+            dist[a, b] = _point_to_poly_distance(lines.pts[b], centroid[a])
+        exact[ff, mm] = True
+
+    err = np.where(exact, 0.0, _DIST_TOL * (1.0 + dist))
+    ceil = (dist + err).min(axis=1, keepdims=True)
+    cand = dist - err <= ceil * (1.0 + _REL_MARGIN)
+    tie = cand & ~exact & (cand.sum(axis=1) > 1)[:, None]
+    if tie.any():
+        settle_distance(*np.nonzero(tie))
+        err[tie] = 0.0
+    near = np.argmin(np.where(cand, dist.astype(np.float32), np.inf), axis=1)
+    fs = np.arange(len(far))
+    d, e = dist[fs, near], err[fs, near]
+    half = 0.5 * np.maximum(np.minimum(lines.font[near],
+                                       np.minimum(w1[far], h1[far])), 10)
+    drop = d >= half
+    for j in np.nonzero(np.abs(d - half)
+                        <= e + _REL_MARGIN * half)[0].tolist():
+        if not exact[j, near[j]]:
+            settle_distance(np.array([j]), near[j:j + 1])
+        _, _, w, h = st[far[j], :4]
+        drop[j] = (np.float32(dist[j, near[j]])
+                   >= 0.5 * max(min([float(lines.font[near[j]]), w, h]), 10))
+    owner[far] = np.where(drop, -1, near)
+    return owner
+
+
 def assign_components(mask: np.ndarray, textlines: List[Quadrilateral],
                       keep_threshold: float):
     """Each connected component of ``mask`` (the line boxes' outlines
     erased) given to its textline: the one it overlaps most, or the
     nearest within half a glyph. Returns each textline's component mask
     and its (x, y, w, h) rectangle, or None when no component was given
-    to any line."""
-    bboxes = [q.aabb.xywh for q in textlines]
-    poly_pts = [q.pts.astype(np.float64) for q in textlines]
-    poly_areas = [cv2.contourArea(p.astype(np.float32)) for p in poly_pts]
-    for (x, y, w, h) in bboxes:
-        cv2.rectangle(mask, (int(x), int(y)), (int(x + w), int(y + h)), 0, 1)
-    num_labels, labels, stats, _ = cv2.connectedComponentsWithStats(mask)
+    to any line.
 
+    The components over 9 px are decided in blocks of rows against every
+    line at once (``_owners``), with the same result, ties included, as
+    one overlap (``cv2.intersectConvexConvex``) and one distance
+    (``cv2.pointPolygonTest``) for each pair; a lookup table from label to
+    line then paints each line's mask inside the line's rectangle. Counts
+    the pairs whose boxes met in ``mask.pairs``."""
+    for q in textlines:
+        x, y, w, h = q.aabb.xywh
+        cv2.rectangle(mask, (int(x), int(y)), (int(x + w), int(y + h)), 0, 1)
     M = len(textlines)
     if M == 0:
         return None
-    textline_ccs = [np.zeros_like(mask) for _ in range(M)]
+    num_labels, labels, stats, _ = cv2.connectedComponentsWithStats(mask)
+    lines = _Lines(textlines)
+    ccs = np.nonzero(stats[1:, cv2.CC_STAT_AREA] > 9)[0] + 1
+    lut = np.full(num_labels, -1, np.int32)
+    rows = max(1, _PAIRS_PER_BLOCK // M)
+    for k0 in range(0, len(ccs), rows):
+        block = ccs[k0:k0 + rows]
+        lut[block] = _owners(stats[block], lines, keep_threshold)
+
+    given = ccs[lut[ccs] >= 0]
+    if len(given) == 0:
+        return None
+    line = lut[given]
+    x1, y1, w1, h1 = stats[given, :4].T
     iinfo = np.iinfo(labels.dtype)
     textline_rects = np.full((M, 4), [iinfo.max, iinfo.max, iinfo.min,
                                       iinfo.min], dtype=labels.dtype)
-    valid = False
-    for label in range(1, num_labels):
-        if stats[label, cv2.CC_STAT_AREA] <= 9:
-            continue
-        x1 = stats[label, cv2.CC_STAT_LEFT]
-        y1 = stats[label, cv2.CC_STAT_TOP]
-        w1 = stats[label, cv2.CC_STAT_WIDTH]
-        h1 = stats[label, cv2.CC_STAT_HEIGHT]
-        area1 = stats[label, cv2.CC_STAT_AREA]
-        cc_pts = np.array([[x1, y1], [x1 + w1, y1], [x1 + w1, y1 + h1],
-                           [x1, y1 + h1]], np.float64)
-        cc_centroid = (x1 + w1 / 2.0, y1 + h1 / 2.0)
-
-        ratios = np.zeros((M,), np.float32)
-        dists = np.zeros((M,), np.float32)
-        for tl_idx in range(M):
-            area2 = poly_areas[tl_idx]
-            overlap = _convex_intersection_area(poly_pts[tl_idx], cc_pts)
-            ratios[tl_idx] = overlap / max(min(area1, area2), 1e-9)
-            dists[tl_idx] = _point_to_poly_distance(poly_pts[tl_idx],
-                                                    cc_centroid)
-        avg = int(np.argmax(ratios))
-        area2 = poly_areas[avg]
-        if area1 >= area2:
-            continue
-        if ratios[avg] <= keep_threshold:
-            avg = int(np.argmin(dists))
-            unit = max(min([textlines[avg].font_size, w1, h1]), 10)
-            if dists[avg] >= 0.5 * unit:
-                continue
-
-        region = textline_ccs[avg][y1:y1 + h1, x1:x1 + w1]
-        region[labels[y1:y1 + h1, x1:x1 + w1] == label] = 255
-        textline_rects[avg, 0] = min(textline_rects[avg, 0], x1)
-        textline_rects[avg, 1] = min(textline_rects[avg, 1], y1)
-        textline_rects[avg, 2] = max(textline_rects[avg, 2], x1 + w1)
-        textline_rects[avg, 3] = max(textline_rects[avg, 3], y1 + h1)
-        valid = True
-
-    if not valid:
-        return None
+    np.minimum.at(textline_rects[:, 0], line, x1)
+    np.minimum.at(textline_rects[:, 1], line, y1)
+    np.maximum.at(textline_rects[:, 2], line, x1 + w1)
+    np.maximum.at(textline_rects[:, 3], line, y1 + h1)
+    # one zeroed block for all lines: the pages stay unmapped until written
+    textline_ccs = list(np.zeros((M,) + mask.shape, mask.dtype))
+    for i in np.unique(line).tolist():
+        xa, ya, xb, yb = textline_rects[i]
+        textline_ccs[i][ya:yb, xa:xb][lut[labels[ya:yb, xa:xb]] == i] = 255
     textline_rects[:, 2] -= textline_rects[:, 0]
     textline_rects[:, 3] -= textline_rects[:, 1]
     return textline_ccs, textline_rects

@@ -283,3 +283,26 @@ def test_merge_graphs_count_their_pairs():
         regions = asyncio.run(textline_merge.dispatch(lines, 600, 800))
     assert len(directions) == n and len(regions) > 1
     assert page.counters == {'geom.pairs': n * (n - 1)}
+
+
+def test_mask_assignment_counts_the_pairs_whose_boxes_meet():
+    """``mask.pairs`` counts the component x line pairs whose boxes meet:
+    of 4 components over 9 px and 5 lines (20 pairs), a stroke inside line
+    0, one inside line 1, one inside the overlap of lines 3 and 4, and a
+    bar that meets no box: 4 pairs."""
+    from manga_image_translator_tpu_torch import mask_refinement
+    from manga_image_translator_tpu_torch.utils.geometry import Quadrilateral
+    boxes = [(20, 20, 60, 40), (100, 20, 140, 40), (20, 80, 140, 100),
+             (20, 120, 80, 140), (60, 120, 140, 140)]
+    lines = [Quadrilateral(np.array([[a, b], [c, b], [c, d], [a, d]]))
+             for a, b, c, d in boxes]
+    mask = np.zeros((160, 160), np.uint8)
+    mask[25:35, 25:35] = 255                # inside line 0
+    mask[25:35, 105:115] = 255              # inside line 1
+    mask[45:75, 75:80] = 255                # between the boxes
+    mask[122:138, 62:78] = 255              # inside lines 3 and 4
+    mask[90:92, 50:52] = 255                # 4 px: no component
+    with profiling.forced(), profiling.page() as page:
+        assigned = mask_refinement.assign_components(mask, lines, 1e-2)
+    assert assigned is not None
+    assert page.counters == {'mask.pairs': 4}
